@@ -2,29 +2,46 @@
 """Chip smoke of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py              # what the checks run
-    python3 chip_smoke.py --profile    # adds a torch.profiler breakdown of the bare step
-    python3 chip_smoke.py --profile --trace=PATH   # and writes its Chrome trace to PATH
+    python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of the bare steps
+    python3 chip_smoke.py --profile --trace=PATH   # and writes their Chrome traces
+                                                   # (PATH, and PATH with _esmm)
 
-Phases, each fatal on failure (exit code 1, no result line):
+Two main paths, each driven through the CLI with every launch counter
+set to 0 just before and read just after: DeepFM (the lazy-sparse step
+on K1 expand_rows / K2 accumulate_rows) and ESMM with --mh_coo (which
+adds K3 coo_pool_rows / K4 coo_accumulate_rows). Phases, each fatal on
+failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build of every CUDA kernel from tf_repos_tpu_torch/ops/csrc (nvcc, sm_90a);
-  3. kernel vs plain PyTorch on the card, at the main path's shapes
-     (DeepFM, B=16384, 26 dynamic fields of Zipf(1.2) ids remapped by the
-     host dedup mapper, K=1+16) plus a ragged and an all-duplicates case:
-     expand_rows must be bit-exact; accumulate_rows (atomics, run-to-run
-     sum order) must satisfy |kernel - plain| <= 1e-4 * sum_i |g_i| per
-     element: f32 round-off grows like sqrt(n) * 6e-8 <= 4e-5 of that sum
-     for the hottest row of 425,984 slots;
-  4. the main path: ``tf_repos_tpu_torch.main`` --task_type=train at the
-     full width of the repo's DeepFM benchmark configuration for >= 20
-     steps on synthetic Zipf libsvm data, both kernels' launch counters
-     reset just before and read just after; then the bare sparse step
+  2. build of every CUDA kernel from tf_repos_tpu_torch/ops/csrc (one
+     nvcc per source, started together, sm_90a);
+  3. kernel vs plain PyTorch on the card, at each main path's shapes:
+     a. DeepFM (B=16384, 26 dynamic fields of Zipf(1.2) ids remapped by
+        the host dedup mapper, K=1+16) plus a ragged and an
+        all-duplicates case: expand_rows must be bit-exact;
+        accumulate_rows (atomics, run-to-run sum order) must satisfy
+        |kernel - plain| <= 1e-4 * sum_i |g_i| per element: f32
+        round-off grows like sqrt(n) * 6e-8 <= 4e-5 of that sum for the
+        hottest row of 425,984 slots;
+     b. ESMM at the published Ali-CCP point (4.5M vocab, B=4096, K=16,
+        pad 512, published multi-hot lengths, Zipf(1.2) ids, the port's
+        packer with combine and its mapper) plus a shuffled-triplet, a
+        pad-heavy and (K3) a bf16-table case: coo_pool_rows and
+        coo_accumulate_rows must satisfy |kernel - plain| <=
+        1e-4 * sum_i |w_i x_i| + 1e-6 per element, for the same reason;
+        expand_rows (bit-exact) and accumulate_rows at the same S on the
+        single-valued fields' ids, the table being the w columns of the
+        [S, 48] store;
+  4. the main paths: ``tf_repos_tpu_torch.main`` --task_type=train at
+     full width, DeepFM for >= 20 steps on synthetic Zipf libsvm data,
+     ESMM for >= 10 steps on Ali-CCP lines from the port's writer; each
+     kernel of the path must have launched; then each bare sparse step
      timed on pre-mapped batches;
-  5. a 5-step trajectory at B=1024 with f32 towers on the card (kernels)
-     against the same steps on the CPU (plain versions), same weights and
-     batches: loss within 1e-4 relative, w|m|v rows within 1e-4 absolute
-     (f32 sums in another order on the card; 1e-4 is a fifth of one Adam
-     step at lr 5e-4);
+  5. 5-step trajectories with f32 towers on the card (kernels) against
+     the same steps on the CPU (plain versions), same weights and
+     batches: DeepFM at B=1024, ESMM at B=512 (vocab 50k, pad 64); loss
+     within 1e-4 relative, w|m|v rows within 1e-4 absolute (f32 sums in
+     another order on the card; 1e-4 is a fifth of one Adam step at lr
+     5e-4);
 then the kernel report line and, last, the device line.
 """
 
@@ -46,13 +63,25 @@ sys.path.insert(0, HERE)
 
 from tf_repos_tpu_torch import main as cli  # noqa: E402
 from tf_repos_tpu_torch.config import Config  # noqa: E402
-from tf_repos_tpu_torch.data.sparse_batch import SparseBatchMapper  # noqa: E402
+from tf_repos_tpu_torch.data.ragged import parse_aliccp_lines  # noqa: E402
+from tf_repos_tpu_torch.data.sparse_batch import (  # noqa: E402
+    MHC_CNT,
+    MHC_DEST,
+    MHC_IDX,
+    MHC_W,
+    MhCooPacker,
+    SparseBatchMapper,
+)
 from tf_repos_tpu_torch.data.synthetic import (  # noqa: E402
+    PUBLISHED_MH_AVG_LENS,
+    synthetic_aliccp_batch,
     synthetic_criteo_batch,
+    write_synthetic_aliccp,
     write_synthetic_libsvm,
 )
 from tf_repos_tpu_torch.models import create_model  # noqa: E402
 from tf_repos_tpu_torch.ops import build  # noqa: E402
+from tf_repos_tpu_torch.ops import coo_pool as CP  # noqa: E402
 from tf_repos_tpu_torch.ops import sparse_rows as SR  # noqa: E402
 from tf_repos_tpu_torch.train import loop as L  # noqa: E402
 from tf_repos_tpu_torch.train import sparse as SP  # noqa: E402
@@ -74,6 +103,20 @@ WIDTH = dict(
 B = WIDTH["batch_size"]
 STATIC = WIDTH["static_fields"]
 MAIN_STEPS = 21
+
+# the ESMM main path: the JAX package's published Ali-CCP point
+# (scripts/bench_published.py, cell esmm_coo_dma_combine without
+# --dma_scatter), at full width
+ESMM_WIDTH = dict(
+    model="ESMM", feature_size=4_500_000, field_size=11, embedding_size=16,
+    deep_layers="256,128", dropout="1.0,1.0", batch_size=4096,
+    learning_rate=0.0005, l2_reg=0.0001, optimizer="Adam", multi_hot_pad=512,
+    compute_dtype="bfloat16", param_dtype="float32", sparse_table_update=True,
+    fused_table=True, pallas_expand=True, mh_coo=True, mh_coo_combine=True,
+)
+EB = ESMM_WIDTH["batch_size"]
+ESMM_STEPS = 10
+MH_FIELDS = ("u_catids", "u_shopids", "u_brandids", "u_intids", "a_intids")
 
 
 def log(msg: str) -> None:
@@ -187,7 +230,147 @@ def kernel_phase(dev):
         ms, plain, lib = t[name]
         log(f"kernel {name}: max_abs_err {err[name]:.3e}  {ms:.4f} ms  plain {plain:.4f} ms  "
             f"library {lib:.4f} ms  bound {bound[name]:.4f} ms (bytes)")
-    return {"s": s, "n": n, "k": k, "t": t, "bound": bound, "err": err}
+    return {"t": t, "bound": bound, "bound_by": "bytes", "err": err}
+
+
+def esmm_batches(n, seed=0, batch=EB, vocab=ESMM_WIDTH["feature_size"],
+                 pad=ESMM_WIDTH["multi_hot_pad"]):
+    """Padded Ali-CCP batches at the published length point: published
+    multi-hot lengths (PUBLISHED_MH_AVG_LENS), Zipf(1.2) ids."""
+    rng = np.random.default_rng(seed)
+    return [synthetic_aliccp_batch(rng, batch, vocab, multi_hot_pad=pad,
+                                   avg_lens=PUBLISHED_MH_AVG_LENS, zipf_a=1.2)
+            for _ in range(n)]
+
+
+def esmm_chain(model):
+    """The CLI's host chain for --mh_coo training batches: the COO packer
+    (with combine) first, then the dedup mapper."""
+    packer = MhCooPacker(model.mh_coo_groups(), combine=True)
+    mapper = SparseBatchMapper(model.sparse_slots())
+    return lambda b: mapper(packer(dict(b)))
+
+
+def held(name, got, want, scale) -> float:
+    """|got - want| <= 1e-4 * scale + 1e-6 per element; returns the max
+    abs difference."""
+    torch.cuda.synchronize()
+    d = (got - want).abs()
+    check(bool((d <= 1e-4 * scale + 1e-6).all()), f"{name} differs: max abs err {float(d.max())}")
+    return float(d.max())
+
+
+def esmm_kernel_phase(dev):
+    model = create_model(Config(**ESMM_WIDTH))
+    vocab = ESMM_WIDTH["feature_size"]
+    raw = esmm_batches(1)[0]
+    live = int(sum((raw[f] > 0).sum() for f in MH_FIELDS))
+    mapped = esmm_chain(model)(raw)
+    idx, dest, w = (torch.from_numpy(mapped[key].reshape(-1)).to(dev)
+                    for key in (MHC_IDX, MHC_DEST, MHC_W))
+    m, m_live = idx.shape[0], int(mapped[MHC_CNT].sum())
+    s = int(mapped["__uids_emb"].shape[0])
+    uniq = int((mapped["__uids_emb"] < vocab).sum())
+    k = ESMM_WIDTH["embedding_size"]
+    g = EB * len(model.mh_coo_groups())
+    log(f"ESMM host shapes: {live} live multi-hot slots before combine, {m_live} after "
+        f"(COO bucket M={m}); {uniq} unique ids (uids bucket S={s}); pooled rows G={g}; K={k}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    # on the main path the table is the w columns of the gathered [S, 3K]
+    # w|m|v rows: a [S, K] view with row stride 3K
+    table = torch.randn((s, 3 * k), generator=gen, device=dev)[:, :k]
+    dp = torch.randn((g, k), generator=gen, device=dev)
+
+    def pool_err(name, t, i, d, ww):
+        return held(name, CP.coo_pool_rows(t, i, d, ww, g), CP.coo_pool_rows_plain(t, i, d, ww, g),
+                    CP.coo_pool_rows_plain(t.abs(), i, d, ww.abs(), g))
+
+    def acc_err(name, i, d, ww):
+        return held(name, CP.coo_accumulate_rows(dp, i, d, ww, s),
+                    CP.coo_accumulate_rows_plain(dp, i, d, ww, s),
+                    CP.coo_accumulate_rows_plain(dp.abs(), i, d, ww.abs(), s))
+
+    err = {"coo_pool_rows": pool_err("coo_pool_rows", table, idx, dest, w),
+           "coo_accumulate_rows": acc_err("coo_accumulate_rows", idx, dest, w)}
+    perm = torch.randperm(m, generator=torch.Generator().manual_seed(2)).to(dev)
+    zpad = torch.zeros(3 * m_live, dtype=torch.int32, device=dev)
+    cases = {
+        "shuffled triplets": (idx[perm], dest[perm], w[perm]),
+        "pad-heavy (75% padding)": (torch.cat([idx[:m_live], zpad]), torch.cat([dest[:m_live], zpad]),
+                                    torch.cat([w[:m_live], zpad.float()])),
+    }
+    for name, (i2, d2, w2) in cases.items():
+        e3 = pool_err(f"coo_pool_rows {name}", table, i2, d2, w2)
+        e4 = acc_err(f"coo_accumulate_rows {name}", i2, d2, w2)
+        log(f"kernel check {name}: M={i2.shape[0]} ok (max abs err pool {e3:.3e}, accumulate {e4:.3e})")
+    e3 = pool_err("coo_pool_rows bf16 table", table.to(torch.bfloat16), idx, dest, w)
+    log(f"kernel check coo_pool_rows bf16 table: ok (max abs err {e3:.3e})")
+
+    # the library yardstick for K3: one embedding_bag call over the same
+    # slots, whose (group, row) bags are contiguous (offsets from the
+    # packer's counts); its output is in bag order, group-major
+    tc = table.contiguous()
+    idx64 = idx.long()
+    cnt = torch.from_numpy(mapped[MHC_CNT].reshape(-1).astype(np.int64))
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(cnt, 0)[:-1]]).to(dev)
+    bag = torch.nn.functional.embedding_bag(idx64, tc, offsets, mode="sum", per_sample_weights=w)
+    ng = len(model.mh_coo_groups())
+    held("embedding_bag yardstick", bag.reshape(ng, EB, k).transpose(0, 1).reshape(g, k),
+         CP.coo_pool_rows_plain(table, idx, dest, w, g),
+         CP.coo_pool_rows_plain(table.abs(), idx, dest, w.abs(), g))
+
+    # K1 and K2 at this point's S, above the JAX package's 49,152-row
+    # cap, where it runs an XLA gather forward and the lane-packed
+    # accumulate_rows_packed backward: the lookup of the 14 single-valued
+    # fields into the w columns of the [S, 3K] store, and its cotangent
+    ids = torch.from_numpy(np.concatenate(
+        [mapped["feat_ids"]] + [mapped[f][:, None] for f in ("a_catids", "a_shopids", "a_brandids")],
+        axis=1).reshape(-1)).to(dev)
+    n2 = ids.shape[0]
+    check(torch.equal(SR.expand_rows(table, ids), SR.expand_rows_plain(table, ids)),
+          "expand_rows at the ESMM point differs from table[idx]")
+    g2 = torch.randn((n2, k), generator=gen, device=dev)
+    e2 = held("accumulate_rows at the ESMM point", SR.accumulate_rows(g2, ids, s),
+              SR.accumulate_rows_plain(g2, ids, s), SR.accumulate_rows_plain(g2.abs(), ids, s))
+    # both move the ids, the [S, K] rows and the [N, K] rows once
+    b12 = (n2 * k * 4 + n2 * 4 + s * k * 4) / HBM_BYTES_PER_S * 1e3
+    zeros = torch.zeros((s, k), device=dev)
+    log(f"kernel expand_rows at the ESMM point (S={s}, N={n2}, K={k}, table row stride "
+        f"{table.stride(0)}; where the TPU runs an XLA gather): max_abs_err 0 (bit-exact)  "
+        f"{cuda_ms(lambda: SR.expand_rows(table, ids)):.4f} ms  "
+        f"plain {cuda_ms(lambda: SR.expand_rows_plain(table, ids)):.4f} ms  "
+        f"library (index_select) {cuda_ms(lambda: torch.index_select(table, 0, ids)):.4f} ms  "
+        f"bound {b12:.4f} ms (bytes)")
+    log(f"kernel accumulate_rows at the ESMM point (S={s}, N={n2}, K={k}; covers the TPU's "
+        f"accumulate_rows_packed): max_abs_err {e2:.3e}  "
+        f"{cuda_ms(lambda: SR.accumulate_rows(g2, ids, s)):.4f} ms  "
+        f"plain {cuda_ms(lambda: SR.accumulate_rows_plain(g2, ids, s)):.4f} ms  "
+        f"library (index_add) {cuda_ms(lambda: torch.index_add(zeros, 0, ids, g2)):.4f} ms  "
+        f"bound {b12:.4f} ms (bytes)")
+    t = {
+        "coo_pool_rows": (
+            cuda_ms(lambda: CP.coo_pool_rows(table, idx, dest, w, g)),
+            cuda_ms(lambda: CP.coo_pool_rows_plain(table, idx, dest, w, g)),
+            cuda_ms(lambda: torch.nn.functional.embedding_bag(
+                idx64, tc, offsets, mode="sum", per_sample_weights=w))),
+        "coo_accumulate_rows": (
+            cuda_ms(lambda: CP.coo_accumulate_rows(dp, idx, dest, w, s)),
+            cuda_ms(lambda: CP.coo_accumulate_rows_plain(dp, idx, dest, w, s)),
+            cuda_ms(lambda: torch.index_add(zeros, 0, idx, dp.index_select(0, dest) * w[:, None]))),
+    }
+    # least time: the three slot arrays, the table rows and the pooled
+    # rows each moved once (the products are ~M*K FMAs, far below the
+    # f32 rate)
+    nbytes = m * 12 + s * k * 4 + g * k * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * m * k / F32_FLOPS * 1e3
+    bound, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    lib_name = {"coo_pool_rows": "embedding_bag", "coo_accumulate_rows": "index_select*w + index_add"}
+    for name in t:
+        ms, plain, lib = t[name]
+        log(f"kernel {name}: max_abs_err {err[name]:.3e}  {ms:.4f} ms  plain {plain:.4f} ms  "
+            f"library ({lib_name[name]}) {lib:.4f} ms  bound {bound:.4f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {2 * m * k / 1e6:.1f} MFLOP)")
+    return {"t": t, "bound": {n: bound for n in t}, "bound_by": bound_by, "err": err}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -221,6 +404,86 @@ def main_path(dev, work):
     return launches
 
 
+def esmm_main_path(dev, work):
+    data = os.path.join(work, "esmm_data")
+    os.makedirs(data)
+    tr = os.path.join(data, "tr.samples.txt")
+    t0 = time.perf_counter()
+    write_synthetic_aliccp(tr, ESMM_STEPS * EB, ESMM_WIDTH["feature_size"], seed=1, zipf_a=1.2,
+                           mh_avg_lens=PUBLISHED_MH_AVG_LENS)
+    write_synthetic_aliccp(os.path.join(data, "va.samples.txt"), EB, ESMM_WIDTH["feature_size"],
+                           seed=2, zipf_a=1.2, mh_avg_lens=PUBLISHED_MH_AVG_LENS)
+    t_write = time.perf_counter() - t0
+    with open(tr, "rb") as f:
+        lines = [next(f) for _ in range(EB)]
+    t0 = time.perf_counter()
+    parse_aliccp_lines(lines, ESMM_WIDTH["multi_hot_pad"])
+    t_parse = time.perf_counter() - t0
+    log(f"ESMM main path data: {ESMM_STEPS * EB} train + {EB} valid lines "
+        f"({os.path.getsize(tr) / 2**20:.0f} MiB of train text) written in {t_write:.1f} s; "
+        f"parse {t_parse:.3f} s per {EB}-line batch (one host thread)")
+    argv = [f"--{k}={v}" for k, v in ESMM_WIDTH.items()] + [
+        "--task_type=train", "--num_epochs=1", "--log_steps=5", f"--data_dir={data}",
+        f"--model_dir={work}/esmm_model/", "--dt_dir=smoke", "--eval_throttle_secs=0",
+        f"--device={dev.type}", "--seed=2018",
+    ]
+    SR.reset_launches()
+    CP.reset_launches()
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in (SR.expand_rows, SR.accumulate_rows,
+                                                CP.coo_pool_rows, CP.coo_accumulate_rows)}
+    log(f"ESMM main path: {res['step']} steps in {wall:.1f} s wall, launches {launches}")
+    check(res["step"] >= ESMM_STEPS, f"ESMM main path ran {res['step']} steps")
+    check(math.isfinite(res["loss"]), f"ESMM main path loss {res['loss']}")
+    for name in ("CTR_AUC", "CVR_AUC", "CTCVR_AUC"):
+        check(0.0 <= res.get(name, -1.0) <= 1.0, f"ESMM main path {name}: {res}")
+    for name, c in launches.items():
+        check(c > 0, f"{name} was not launched on the ESMM main path")
+    return launches
+
+
+def esmm_bare_step(dev, profile):
+    """The bare ESMM --mh_coo sparse step on pre-mapped batches already on
+    the card. profile: None, or the trace path ("" for none)."""
+    cfg = Config(**ESMM_WIDTH)
+    model = create_model(cfg)
+    raw = esmm_batches(4, seed=3)
+    chain = esmm_chain(model)
+    t0 = time.perf_counter()
+    mapped = [chain(b) for b in raw]
+    host_ms = (time.perf_counter() - t0) / len(raw) * 1e3
+    batches = [to_device(b, dev) for b in mapped]
+    torch.cuda.reset_peak_memory_stats()
+    params, mstate = model.init(torch.Generator().manual_seed(0))
+    params = tree_map(lambda x: x.to(dev), params)
+    mstate = tree_map(lambda x: x.to(dev), mstate)
+    tx = make_optimizer("Adam", cfg.learning_rate)
+    sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=True)
+    opt = SP.init_opt_state(model, tx, sopt, params)
+    step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
+    for i in range(3):
+        params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4])
+    torch.cuda.synchronize()
+    n = 20
+    t0 = time.perf_counter()
+    for i in range(n):
+        params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    check(math.isfinite(float(loss)), f"bare ESMM step loss {float(loss)}")
+    log(f"bare step ESMM --mh_coo: {ms:.3f} ms/step, {EB / ms * 1e3:.0f} examples/s "
+        f"(peak mem {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, the [V+1,48] "
+        f"w|m|v store {opt['sparse']['emb']['wmv'].numel() * 4 / 2**20:.0f} MiB); host chain "
+        f"(packer with combine + mapper) {host_ms:.1f} ms/batch")
+    if profile is not None:
+        trace = os.path.splitext(profile)[0] + "_esmm.json" if profile else ""
+        profile_step("ESMM --mh_coo", lambda i: step(params, opt, mstate, batches[i % 4]), trace)
+    return ms
+
+
 def bare_steps(dev, profile):
     """profile: None, or the trace path ("" for none) of a profiled window."""
     # the bare sparse step on pre-mapped batches already on the card
@@ -231,6 +494,7 @@ def bare_steps(dev, profile):
                                           "pallas_expand": False})):
         cfg = Config(**dict(WIDTH, **over))
         model = create_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
         params, mstate = model.init(torch.Generator().manual_seed(0))
         params = tree_map(lambda x: x.to(dev), params)
         mstate = tree_map(lambda x: x.to(dev), mstate)
@@ -260,11 +524,11 @@ def bare_steps(dev, profile):
         log(f"bare step {label}: {ms:.3f} ms/step, {B / ms * 1e3:.0f} examples/s "
             f"(peak mem {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB)")
         if profile is not None and label == "sparse":
-            profile_step(lambda i: step(params, opt, mstate, batches[i % 4]), profile)
+            profile_step("DeepFM sparse", lambda i: step(params, opt, mstate, batches[i % 4]), profile)
     return out
 
 
-def profile_step(run, trace: str):
+def profile_step(label: str, run, trace: str):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -286,21 +550,23 @@ def profile_step(run, trace: str):
             rows.append((dev_us, e.key, e.count))
             busy += dev_us
     rows.sort(reverse=True)
-    log(f"profile: 10 sparse steps, {wall:.2f} ms wall, device busy {busy / 1e3:.2f} ms "
-        f"({100 * busy / 1e3 / wall:.1f}%)" if rows else "profile: no device time recorded")
+    log(f"profile {label}: 10 steps, {wall:.2f} ms wall, device busy {busy / 1e3:.2f} ms "
+        f"({100 * busy / 1e3 / wall:.1f}%), {sum(r[2] for r in rows) / 10:.1f} device "
+        "operations per step" if rows else "profile: no device time recorded")
     for us, key, cnt in rows[:15]:
-        log(f"profile:   {us / 10 / 1e3:8.4f} ms/step  x{cnt // 10:<3d} {key[:90]}")
+        log(f"profile:   {us / 10 / 1e3:8.4f} ms/step  x{cnt / 10:<4.1f} {key[:90]}")
     if trace:
         os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
         prof.export_chrome_trace(trace)
 
 
 # ------------------------------------------------------------------ phase 5
-def trajectory(dev):
-    kw = dict(WIDTH, batch_size=1024, compute_dtype="float32")
-    cfg = Config(**kw)
-    raw = zipf_batches(5, seed=7, batch=1024)
+def card_vs_cpu(label, cfg, mapped, dev, dense):
+    """5 sparse steps on the card (kernels) and on the CPU (plain versions)
+    from the same weights and mapped batches; ``dense(params)`` picks the
+    dense leaves to compare."""
     model = create_model(cfg)
+    (table,) = model.sparse_slots()
     p0, m0 = model.init(torch.Generator().manual_seed(3))
     runs = {}
     for where in ("cpu", dev.type):
@@ -311,21 +577,35 @@ def trajectory(dev):
         sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=True)
         opt = SP.init_opt_state(model, tx, sopt, params)
         step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
-        mapper = SparseBatchMapper(model.sparse_slots())
         losses = []
-        for b in raw:
-            params, opt, mstate, loss = step(params, opt, mstate, to_device(mapper(dict(b)), d))
+        for b in mapped:
+            params, opt, mstate, loss = step(params, opt, mstate, to_device(b, d))
             losses.append(float(loss))
-        runs[where] = (losses, opt["sparse"]["fm_wv"]["wmv"].cpu(), params)
-    (lc, wc, pc), (lg, wg, pg) = runs["cpu"], runs[dev.type]
+        runs[where] = (losses, opt["sparse"][table]["wmv"].cpu(), [x.cpu() for x in dense(params)])
+    (lc, wc, dc), (lg, wg, dg) = runs["cpu"], runs[dev.type]
     rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
     werr = float((wc - wg).abs().max())
-    derr = max(float((a - b.cpu()).abs().max()) for a, b in zip(
-        [pc["fm_b"], pc["out"]["w"]], [pg["fm_b"], pg["out"]["w"]]))
-    log(f"trajectory B=1024 f32, 5 steps: losses cpu {lc} card {lg}; max rel loss diff "
+    derr = max(float((a - b).abs().max()) for a, b in zip(dc, dg))
+    log(f"trajectory {label} f32, 5 steps: losses cpu {lc} card {lg}; max rel loss diff "
         f"{rel:.3e}, max |wmv| diff {werr:.3e}, dense diff {derr:.3e}")
-    check(rel <= 1e-4, f"card vs CPU loss trajectory differs: {rel}")
-    check(werr <= 1e-4 and derr <= 1e-4, f"card vs CPU weights differ: {werr} {derr}")
+    check(rel <= 1e-4, f"{label}: card vs CPU loss trajectory differs: {rel}")
+    check(werr <= 1e-4 and derr <= 1e-4, f"{label}: card vs CPU weights differ: {werr} {derr}")
+
+
+def trajectory(dev):
+    cfg = Config(**dict(WIDTH, batch_size=1024, compute_dtype="float32"))
+    mapper = SparseBatchMapper(create_model(cfg).sparse_slots())
+    mapped = [mapper(b) for b in zipf_batches(5, seed=7, batch=1024)]
+    card_vs_cpu("DeepFM B=1024", cfg, mapped, dev, lambda p: [p["fm_b"], p["out"]["w"]])
+
+
+def esmm_trajectory(dev):
+    cfg = Config(**dict(ESMM_WIDTH, feature_size=50_000, batch_size=512, multi_hot_pad=64,
+                        compute_dtype="float32"))
+    chain = esmm_chain(create_model(cfg))
+    mapped = [chain(b) for b in esmm_batches(5, seed=7, batch=512, vocab=50_000, pad=64)]
+    card_vs_cpu("ESMM --mh_coo B=512 vocab 50k pad 64", cfg, mapped, dev,
+                lambda p: [p["ctr_out"]["w"], p["cvr_out"]["w"]])
 
 
 def main() -> int:
@@ -364,28 +644,35 @@ def main() -> int:
     os.makedirs(work)
     try:
         kp = kernel_phase(dev)
+        ekp = esmm_kernel_phase(dev)
         launches = main_path(dev, work)
+        elaunches = esmm_main_path(dev, work)
         bare = bare_steps(dev, profile)
+        ebare = esmm_bare_step(dev, profile)
         trajectory(dev)
+        esmm_trajectory(dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    replaces = {
-        "expand_rows": "tf_repos_tpu/ops/pallas_sparse.py:164",
-        "accumulate_rows": "tf_repos_tpu/ops/pallas_sparse.py:208",
-    }
+    # K1/K2 launches from the DeepFM main path, K3/K4 from the ESMM one
+    kernels = [
+        ("expand_rows", "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164", kp, launches),
+        ("accumulate_rows", "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:208", kp, launches),
+        ("coo_pool_rows", "coo_pool.cu", "tf_repos_tpu/ops/pallas_sparse.py:463", ekp, elaunches),
+        ("coo_accumulate_rows", "coo_pool.cu", "tf_repos_tpu/ops/pallas_sparse.py:514", ekp,
+         elaunches),
+    ]
     report = []
-    for name in ("expand_rows", "accumulate_rows"):
-        ms, plain, lib = kp["t"][name]
+    for name, src, replaces, phase, counts in kernels:
+        ms, plain, lib = phase["t"][name]
         report.append({
-            "name": name, "route": "cuda",
-            "source": "tf_repos_tpu_torch/ops/csrc/sparse_rows.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": kp["err"][name], "ms": ms, "plain_ms": plain,
-            "bound_ms": kp["bound"][name], "bound_by": "bytes", "library_ms": lib,
+            "name": name, "route": "cuda", "source": f"tf_repos_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": phase["err"][name], "ms": ms, "plain_ms": plain,
+            "bound_ms": phase["bound"][name], "bound_by": phase["bound_by"], "library_ms": lib,
         })
-    log(f"bare sparse step {bare['sparse']:.3f} ms = {B / bare['sparse'] * 1e3:.0f} examples/s "
-        f"on {card}")
+    log(f"bare sparse step DeepFM {bare['sparse']:.3f} ms = {B / bare['sparse'] * 1e3:.0f} "
+        f"examples/s, ESMM --mh_coo {ebare:.3f} ms = {EB / ebare * 1e3:.0f} examples/s on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

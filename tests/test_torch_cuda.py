@@ -6,12 +6,14 @@ with a reason elsewhere. Run them on the card with
 
 Tolerances as in chip_smoke.py: expand is bit-exact; accumulate adds
 with atomics in run-to-run order, held to 1e-4 of sum_i |g_i| per
-element."""
+element; the COO pool and its transpose likewise, to 1e-4 of
+sum_i |w_i x_i| per element, plus 1e-6."""
 
 import numpy as np
 import pytest
 import torch
 
+from tf_repos_tpu_torch.ops import coo_pool as CP
 from tf_repos_tpu_torch.ops import sparse_rows as SR
 
 pytestmark = pytest.mark.cuda
@@ -79,3 +81,82 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         SR.expand_rows(table.double(), torch.zeros(3, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         SR.accumulate_rows(torch.randn((4, 3), device=dev).t(), torch.zeros(3, dtype=torch.int32, device=dev), 5)
+
+
+def _coo(m, s, g, pad, seed=0, runs=True):
+    """idx (Zipf), dest and w of m live slots, emitted in runs of equal
+    dest as the packer does (or shuffled), then ``pad`` padding slots."""
+    rng = np.random.default_rng(seed)
+    idx = np.minimum(rng.zipf(1.2, size=m) - 1, s - 1)
+    dest = np.sort(rng.integers(0, g, size=m)) if runs else rng.integers(0, g, size=m)
+    w = rng.random(m) + 0.5
+    z = np.zeros(pad)
+    return [torch.from_numpy(np.concatenate([a, z]).astype(t)) for a, t in
+            ((idx, np.int32), (dest, np.int32), (w, np.float32))]
+
+
+@pytest.mark.parametrize("m,s,g,k,pad,runs", [
+    (655_360, 114_688, 20_480, 16, 0, True),  # the ESMM published point's shapes
+    (200_000, 5_000, 4_096, 16, 0, False),  # shuffled triplets
+    (30_000, 2_000, 640, 16, 90_000, True),  # pad-heavy
+    (513, 40, 7, 5, 3, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coo_pool_matches_plain(dev, m, s, g, k, pad, runs, dtype):
+    wide = torch.randn((s, 3 * k), device=dev).to(dtype)
+    table = wide[:, :k]  # row-strided view, as on the main path
+    idx, dest, w = (t.to(dev) for t in _coo(m, s, g, pad, runs=runs))
+    before = CP.coo_pool_rows.launches
+    got = CP.coo_pool_rows(table, idx, dest, w, g)
+    torch.cuda.synchronize()
+    assert CP.coo_pool_rows.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (g, k)
+    want = CP.coo_pool_rows_plain(table, idx, dest, w, g)
+    scale = CP.coo_pool_rows_plain(table.abs(), idx, dest, w.abs(), g)
+    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("m,s,g,k,pad,runs", [
+    (655_360, 114_688, 20_480, 16, 0, True),
+    (200_000, 5_000, 4_096, 16, 0, False),
+    (30_000, 2_000, 640, 16, 90_000, True),
+    (513, 40, 7, 5, 3, True),
+])
+def test_coo_accumulate_matches_plain(dev, m, s, g, k, pad, runs):
+    dp = torch.randn((g, k), device=dev)
+    idx, dest, w = (t.to(dev) for t in _coo(m, s, g, pad, seed=1, runs=runs))
+    before = CP.coo_accumulate_rows.launches
+    got = CP.coo_accumulate_rows(dp, idx, dest, w, s)
+    torch.cuda.synchronize()
+    assert CP.coo_accumulate_rows.launches == before + 1
+    want = CP.coo_accumulate_rows_plain(dp, idx, dest, w, s)
+    scale = CP.coo_accumulate_rows_plain(dp.abs(), idx, dest, w.abs(), s)
+    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+def test_coo_pool_grad_on_card_matches_cpu(dev):
+    rows = torch.from_numpy(np.random.default_rng(2).standard_normal((300, 16)).astype(np.float32))
+    idx, dest, w = _coo(5_000, 300, 96, 100, seed=2)
+    probe = torch.randn((96, 16))
+    pool = CP.make_coo_pool()
+    grads = []
+    for d in ("cpu", dev):
+        r = rows.to(d).requires_grad_(True)
+        out = pool(r, idx.to(d), dest.to(d), w.to(d), 96)
+        (g,) = torch.autograd.grad((out * probe.to(d)).sum(), r)
+        grads.append(g.cpu())
+    # the hot (Zipf) rows sum thousands of terms in another order
+    scale = CP.coo_accumulate_rows_plain(probe.abs(), idx, dest, w.abs(), 300)
+    assert bool(((grads[1] - grads[0]).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+def test_coo_wrappers_reject_what_the_kernels_do_not_take(dev):
+    table = torch.randn((10, 4), device=dev)
+    i32 = torch.zeros(3, dtype=torch.int32, device=dev)
+    w = torch.ones(3, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        CP.coo_pool_rows(table, i32.long(), i32, w, 2)
+    with pytest.raises(ValueError, match="lengths differ"):
+        CP.coo_pool_rows(table, i32, i32[:2], w, 2)
+    with pytest.raises(ValueError, match="float32"):
+        CP.coo_accumulate_rows(torch.randn((2, 4), device=dev).double(), i32, i32, w, 10)

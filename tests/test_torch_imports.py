@@ -40,6 +40,9 @@ def _chip_smoke_imports():
 def test_modules_listed():
     mods = _modules()
     assert "tf_repos_tpu_torch.ops.sparse_rows" in mods
+    assert "tf_repos_tpu_torch.ops.coo_pool" in mods
+    assert "tf_repos_tpu_torch.models.esmm" in mods
+    assert "tf_repos_tpu_torch.data.ragged" in mods
     assert "tf_repos_tpu_torch.train.harness" in mods
     assert len(mods) >= 20
 

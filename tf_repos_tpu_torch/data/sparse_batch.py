@@ -1,6 +1,6 @@
-"""Host-side batch dedup for the lazy sparse-table path (the port's own
-copy of the JAX package's data/sparse_batch.py's SparseBatchMapper, without
-the multi-hot COO branches, and quarter_pow2). Host numpy only.
+"""Host-side batch preparation for the lazy sparse-table path (the port's
+own copy of the JAX package's data/sparse_batch.py: the dedup mapper,
+the multi-hot COO packer and quarter_pow2). Host numpy only.
 
 For each sparse table (model.sparse_slots()) the mapper computes the
 batch's unique id set and rewrites the batch:
@@ -10,15 +10,27 @@ batch's unique id set and rewrites the batch:
   batch[<id field>]        remapped to positions into __uids_<table>
 
 The dedup is an O(V + N) flag array, not a sort; the scratch arrays are
-allocated once and reused."""
+allocated once and reused.
+
+Under --mh_coo, MhCooPacker runs first: it replaces the padded
+multi-hot fields by a COO triplet of their live slots (``__mhc_idx``,
+``__mhc_dest``, ``__mhc_w``, see the class), and the mapper then remaps
+``__mhc_idx`` with the table's other id fields."""
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator
+from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
 
 UIDS_PREFIX = "__uids_"
+
+MHC_IDX = "__mhc_idx"
+MHC_DEST = "__mhc_dest"
+MHC_W = "__mhc_w"
+# live slots per (group, row), int32[1, n_groups, B], in the packer's
+# group-major emission order
+MHC_CNT = "__mhc_cnt"
 
 
 class SparseBatchMapper:
@@ -60,7 +72,15 @@ class SparseBatchMapper:
             remap = self._remap[name]
             seen.fill(False)
 
-            fields = [np.asarray(batch[f]) for f in slot.fields]
+            # fields the packer consumed are absent; their live ids ride
+            # the COO idx stream, which joins this slot's remap set (dead
+            # padding slots carry id 0, which is always seeded, so the
+            # unique set is the same either way)
+            present = [f for f in slot.fields if f in batch]
+            fields = [np.asarray(batch[f]) for f in present]
+            if MHC_IDX in batch and len(present) < len(slot.fields):
+                present.append(MHC_IDX)
+                fields.append(np.asarray(batch[MHC_IDX]))
             ids = np.concatenate([a.ravel() for a in fields])
             # id 0 (padding) and ids 1..static are always in the set, so
             # position == id for the whole static block
@@ -74,7 +94,7 @@ class SparseBatchMapper:
             uids = np.full(s_pad, vocab, np.int32)
             uids[: u.size] = u
             batch[UIDS_PREFIX + name] = uids
-            for f, arr in zip(slot.fields, fields):
+            for f, arr in zip(present, fields):
                 batch[f] = np.take(remap, arr, mode="clip")
         return batch
 
@@ -98,3 +118,90 @@ def quarter_pow2(m: int) -> int:
             if m <= c:
                 return c
     return p
+
+
+def combine_dups(a: np.ndarray, v: Optional[np.ndarray] = None):
+    """Combine duplicate ids within each row of a padded multi-hot field
+    [B, P] (live slots: id > 0). Returns (ids int32, weights f32, counts
+    per row int32), rows ascending and ids ascending within a row.
+    v=None weighs each occurrence 1.0; otherwise the weights of duplicate
+    (row, id) pairs are summed, which is exact for sum combiners up to
+    float summation order."""
+    b, p = a.shape
+    fa = a.reshape(-1)
+    lv = np.flatnonzero(fa > 0)
+    w = v.reshape(-1)[lv].astype(np.float32) if v is not None else np.ones(lv.size, np.float32)
+    key = ((lv // p).astype(np.int64) << 32) | fa[lv].astype(np.int64)
+    uk, inv = np.unique(key, return_inverse=True)
+    wc = np.bincount(inv, weights=w).astype(np.float32)
+    ids_c = (uk & 0xFFFFFFFF).astype(np.int32)
+    cnt = np.bincount((uk >> 32).astype(np.int64), minlength=b).astype(np.int32)
+    return ids_c, wc, cnt
+
+
+class MhCooPacker:
+    """Padded multi-hot groups -> COO triplet of their live slots (--mh_coo).
+
+    groups: ((field, has_vals), ...) in pooled-output order. The packer
+    pops each group's padded ``<field>ids`` (and ``<field>vals``) and adds
+
+      __mhc_idx  int32[1, M_pad]  table id of the slot (the mapper remaps
+                                  it to a position into __uids_<table>)
+      __mhc_dest int32[1, M_pad]  pooled row = b * n_groups + g
+      __mhc_w    f32[1, M_pad]    vals (val-bearing groups) or 1.0
+      __mhc_cnt  int32[1, n_groups, B]  live slots per (group, row)
+
+    Slots are emitted group-major, rows ascending, so each (group, row)
+    bag is contiguous. M_pad grows monotonically over the quarter-pow2
+    ladder from ``floor``; padding entries are idx = dest = 0, w = 0 and
+    add zero into pooled row 0. The leading axis of 1 is the JAX
+    package's data-shard axis (one shard on one device).
+
+    combine=True sums the weights of duplicate (row, id) pairs per group
+    first (combine_dups), exact for sum-pooling consumers only (the
+    harness gates it on model.coo_combine_ok()). The JAX package's DIN
+    streams (sorted_aux, cdest_aux) are not ported."""
+
+    def __init__(self, groups, floor: int = 1024, combine: bool = False):
+        if not groups:
+            raise ValueError("--mh_coo: model declares no multi-hot groups")
+        self.groups = tuple(groups)
+        self.combine = bool(combine)
+        self._bucket = max(int(floor), 1)
+
+    def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        batch = dict(batch)
+        ngr = len(self.groups)
+        idx_parts, dest_parts, w_parts = [], [], []
+        cnt = None
+        for g, (f, has_vals) in enumerate(self.groups):
+            a = np.asarray(batch.pop(f + "ids"))
+            v = np.asarray(batch.pop(f + "vals")) if has_vals else None
+            b, p = a.shape
+            if cnt is None:
+                cnt = np.zeros((1, ngr, b), np.int32)
+            if self.combine:
+                ic, wc, cr = combine_dups(a, v)
+                rows = np.repeat(np.arange(b, dtype=np.int64), cr)
+            else:
+                fa = a.reshape(-1)
+                lv = np.flatnonzero(fa > 0)
+                ic = fa[lv]
+                wc = (v.reshape(-1)[lv].astype(np.float32) if has_vals
+                      else np.ones(lv.size, np.float32))
+                rows = lv // p
+                cr = np.bincount(rows, minlength=b)
+            idx_parts.append(ic)
+            dest_parts.append((rows * ngr + g).astype(np.int32))
+            w_parts.append(wc)
+            cnt[0, g] = cr
+        m = sum(x.size for x in idx_parts)
+        self._bucket = max(self._bucket, quarter_pow2(m))
+        idx = np.zeros((1, self._bucket), np.int32)
+        dest = np.zeros((1, self._bucket), np.int32)
+        w = np.zeros((1, self._bucket), np.float32)
+        idx[0, :m] = np.concatenate(idx_parts)
+        dest[0, :m] = np.concatenate(dest_parts)
+        w[0, :m] = np.concatenate(w_parts)
+        batch[MHC_IDX], batch[MHC_DEST], batch[MHC_W], batch[MHC_CNT] = idx, dest, w, cnt
+        return batch

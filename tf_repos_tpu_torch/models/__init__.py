@@ -1,5 +1,6 @@
-"""Model registry. This slice ports DeepFM only; every other model name of
-the JAX package's registry raises NotImplementedError."""
+"""Model registry. Ported so far: DeepFM and ESMM (alias DeepCvrMTL);
+every other model name of the JAX package's registry raises
+NotImplementedError."""
 
 from __future__ import annotations
 
@@ -8,17 +9,20 @@ from typing import Callable, Dict
 from tf_repos_tpu_torch.config import Config
 from tf_repos_tpu_torch.models.base import CtrModel
 from tf_repos_tpu_torch.models.deepfm import DeepFM
+from tf_repos_tpu_torch.models.esmm import ESMM
 
-_REGISTRY: Dict[str, Callable[[Config], CtrModel]] = {"deepfm": DeepFM}
+_REGISTRY: Dict[str, Callable[[Config], CtrModel]] = {
+    "deepfm": DeepFM, "esmm": ESMM, "deepcvrmtl": ESMM,
+}
 
 # the JAX package's other model names, not ported yet
 _NOT_PORTED = (
-    "lr", "nfm", "afm", "dcn", "deepmvm", "din", "esmm", "deepcvrmtl", "pnn",
+    "lr", "nfm", "afm", "dcn", "deepmvm", "din", "pnn",
     "fnn", "ipnn", "inner", "opnn", "outer", "wide_n_deep", "widedeep", "wdl",
     "wide", "deep",
 )
 
-INPUT_FORMAT: Dict[str, str] = {}
+INPUT_FORMAT: Dict[str, str] = {"ESMM": "aliccp"}
 
 
 def model_names():

@@ -73,6 +73,18 @@ class CtrModel:
     def sparse_slots(self) -> Dict[str, SparseSlot]:
         return {}
 
+    def mh_coo_groups(self):
+        """Multi-hot groups the host may pack as a COO triplet (--mh_coo;
+        data/sparse_batch.MhCooPacker): ((field, has_vals), ...) in
+        pooled-output order. Empty: the model keeps padded batches."""
+        return ()
+
+    def coo_combine_ok(self) -> bool:
+        """True when every consumer of the COO (idx, dest, w) stream is
+        linear in w, so the host may sum the weights of duplicate
+        (row, id) pairs first (--mh_coo_combine)."""
+        return False
+
     def loss(
         self,
         params: Params,

@@ -27,8 +27,22 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+MAX_K = 4096  # the kernels' in-tile row arithmetic is exact below this
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def check_k(what: str, k: int) -> None:
+    """Row width limit shared by every kernel wrapper."""
+    if not 0 < k < MAX_K:
+        raise ValueError(f"{what}: K={k} outside (0, {MAX_K})")
+
+
+def check_rc(what: str, rc: int) -> None:
+    """A kernel entry point returns cudaGetLastError(); raise on non-zero."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA kernel launch failed (cudaError {rc})")
 
 
 def sources() -> List[str]:

@@ -42,6 +42,19 @@ def dense_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[ids]
 
 
+def coo_pool(table: torch.Tensor, idx: torch.Tensor, dest: torch.Tensor,
+             w: torch.Tensor, n_out: int) -> torch.Tensor:
+    """COO multi-hot segment pool, plain form: out[d] = sum over
+    {i: dest[i] == d} of w[i] * table[idx[i]], f32 [n_out, K]. The
+    models' default combiner for --mh_coo batches; a lookup may carry a
+    kernel drop-in as its ``coo_pool`` attribute (ops/coo_pool.py).
+    Padding entries (idx = dest = 0, w = 0) add zero into row 0."""
+    rows = table[idx].float() * w.float()[:, None]
+    return torch.zeros((n_out, table.shape[-1]), dtype=torch.float32, device=table.device).index_add_(
+        0, dest, rows
+    )
+
+
 def fused_linear_table_init(
     generator: Optional[torch.Generator], feature_size: int, k: int
 ) -> torch.Tensor:

@@ -78,9 +78,13 @@ def log_loss(
 
 
 def sigmoid_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """tf.nn.sigmoid_cross_entropy_with_logits, numerically stable."""
-    return torch.clamp(logits, min=0.0) - logits * labels + torch.log1p(
-        torch.exp(-torch.abs(logits))
+    """tf.nn.sigmoid_cross_entropy_with_logits, numerically stable. At a
+    logit of exactly 0 (a tower whose last ReLU layer is all zero, with a
+    zero bias) the gradient is -label, the subgradient the JAX package's
+    jnp.maximum / jnp.abs give: torch.maximum splits a tie as jnp.maximum
+    does, and the where() takes |x|' = 1 at 0 as jnp.abs does."""
+    return torch.maximum(logits, torch.zeros_like(logits)) - logits * labels + torch.log1p(
+        torch.exp(-torch.where(logits >= 0, logits, -logits))
     )
 
 

@@ -31,8 +31,6 @@ import torch
 
 from tf_repos_tpu_torch.ops import build
 
-_MAX_K = 4096  # the kernels' in-tile row arithmetic is exact below this
-
 
 # ------------------------------------------------------------ plain versions
 def expand_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -55,11 +53,6 @@ def _lib() -> ctypes.CDLL:
     lib.tr_accumulate_rows.argtypes = [p, p, ll, i, i, p, p]
     lib.tr_accumulate_rows.restype = i
     return lib
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA kernel launch failed (cudaError {rc})")
 
 
 def _check_idx(idx: torch.Tensor, device: torch.device) -> None:
@@ -86,8 +79,7 @@ def expand_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"expand_rows: table dtype {table.dtype} (f32 or bf16)")
     k = table.shape[1]
-    if not 0 < k < _MAX_K:
-        raise ValueError(f"expand_rows: K={k} outside (0, {_MAX_K})")
+    build.check_k("expand_rows", k)
     n = idx.shape[0]
     out = torch.empty((n, k), dtype=table.dtype, device=table.device)
     with torch.cuda.device(table.device):
@@ -96,7 +88,7 @@ def expand_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             table.data_ptr(), table.stride(0), idx.data_ptr(), n, k,
             table.element_size(), out.data_ptr(), stream,
         )
-    _check(rc, "expand_rows")
+    build.check_rc("expand_rows", rc)
     expand_rows.launches += 1
     return out
 
@@ -117,8 +109,7 @@ def accumulate_rows(g: torch.Tensor, idx: torch.Tensor, s: int) -> torch.Tensor:
     n, k = g.shape
     if idx.shape[0] != n:
         raise ValueError(f"accumulate_rows: {n} rows of g but {idx.shape[0]} indices")
-    if not 0 < k < _MAX_K:
-        raise ValueError(f"accumulate_rows: K={k} outside (0, {_MAX_K})")
+    build.check_k("accumulate_rows", k)
     out = torch.zeros((s, k), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -126,7 +117,7 @@ def accumulate_rows(g: torch.Tensor, idx: torch.Tensor, s: int) -> torch.Tensor:
             g.data_ptr(), idx.data_ptr(), n, k, int(g.dtype == torch.bfloat16),
             out.data_ptr(), stream,
         )
-    _check(rc, "accumulate_rows")
+    build.check_rc("accumulate_rows", rc)
     accumulate_rows.launches += 1
     return out
 
@@ -172,10 +163,16 @@ def make_expand_lookup():
     the compact [S,K] block of the batch's unique rows and ``ids`` the
     remapped positions into it. Marked ``static_slice_ok``: the table is
     positionally addressed, so models may serve static-id fields from a
-    slice (models/deepfm.py)."""
+    slice (models/deepfm.py). Its ``coo_pool`` attribute is the COO
+    multi-hot pool on the same compact rows (ops/coo_pool.py), which the
+    models reach through ``getattr(lookup, "coo_pool", ...)``."""
+    # here, not at the top: ops/coo_pool.py builds its plain transpose on
+    # accumulate_rows_plain above
+    from tf_repos_tpu_torch.ops.coo_pool import make_coo_pool
 
     def lookup(rows: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         return _ExpandLookup.apply(rows, ids)
 
     lookup.static_slice_ok = True
+    lookup.coo_pool = make_coo_pool()
     return lookup

@@ -1,5 +1,6 @@
 """Trainer harness (counterpart of the JAX package's train/harness.py) for
-task_type=train and eval, DeepFM on libsvm, one device.
+task_type=train and eval on one device: DeepFM on libsvm, ESMM on Ali-CCP
+sample lines.
 
   train -> train loop with periodic eval (eval_throttle_secs), checkpoints
            (torch.save under model_dir), a final eval on the va* split
@@ -8,6 +9,9 @@ task_type=train and eval, DeepFM on libsvm, one device.
 The step is the lazy sparse step (train/sparse.py) under
 --sparse_table_update, with the hand-written expand/accumulate kernels
 as its inner lookup under --pallas_expand; the dense step otherwise.
+Under --mh_coo the training batches' multi-hot fields are packed into a
+COO triplet on the host (data/sparse_batch.MhCooPacker, before the dedup
+mapper), which the COO pool kernels consume; eval batches stay padded.
 --steps_per_dispatch K runs as a plain loop of K steps. Flags whose code
 path the port does not have yet raise NotImplementedError by name."""
 
@@ -26,7 +30,8 @@ import torch
 
 from tf_repos_tpu_torch.config import Config, echo_config
 from tf_repos_tpu_torch.data.libsvm import LibsvmDataset, glob_input_files
-from tf_repos_tpu_torch.data.sparse_batch import SparseBatchMapper, mapped_batches
+from tf_repos_tpu_torch.data.ragged import AliccpDataset
+from tf_repos_tpu_torch.data.sparse_batch import MhCooPacker, SparseBatchMapper, mapped_batches
 from tf_repos_tpu_torch.models import create_model, input_format
 from tf_repos_tpu_torch.train import loop as L
 from tf_repos_tpu_torch.train import sparse as SP
@@ -42,7 +47,6 @@ def check_supported(cfg: Config) -> None:
         "--mesh_data>1": cfg.mesh_data > 1,
         "--mesh_model>1": cfg.mesh_model > 1,
         "--dist_mode": cfg.dist_mode != 0,
-        "--mh_coo": cfg.mh_coo,
         "--mh_bucket": cfg.mh_bucket not in ("", "off"),
         "--coo_sorted_bwd": cfg.coo_sorted_bwd,
         "--field_blocks": bool(cfg.field_blocks),
@@ -156,6 +160,16 @@ class Harness:
                 "--fused_table requires --sparse_table_update (the fused "
                 "[V,3K] w|m|v storage lives in the lazy sparse row-update path)"
             )
+        if cfg.mh_coo:
+            if self._sparse_slots is None:
+                raise ValueError(
+                    "--mh_coo requires --sparse_table_update (the COO idx are "
+                    "remapped positions into the batch's unique rows)"
+                )
+            if not self.model.mh_coo_groups():
+                raise ValueError(
+                    f"--mh_coo: {self.model.name} declares no multi-hot groups"
+                )
         self._sopt = None
         if self._sparse_slots is not None:
             self._sopt = SP.make_sparse_row_optimizer(
@@ -214,14 +228,29 @@ class Harness:
     def _dataset(self, split: str, *, shuffle: bool, epochs: int) -> Iterable:
         cfg = self.cfg
         fmt = input_format(self.model)
-        files = glob_input_files(cfg.data_dir, f"{split}*{fmt}", shuffle=shuffle, seed=cfg.seed)
+        if fmt == "aliccp":
+            files = [f for f in glob_input_files(cfg.data_dir, f"{split}*", shuffle=shuffle, seed=cfg.seed)
+                     if not f.endswith((".libsvm", ".csv"))]
+        else:
+            files = glob_input_files(cfg.data_dir, f"{split}*{fmt}", shuffle=shuffle, seed=cfg.seed)
         if not files:
             raise FileNotFoundError(f"no {split}* {fmt} input files in {cfg.data_dir}")
-        ds: Iterable = LibsvmDataset(
-            files, field_size=cfg.field_size, batch_size=cfg.batch_size,
-            num_epochs=epochs, perform_shuffle=shuffle, seed=cfg.seed,
-        )
+        common = dict(batch_size=cfg.batch_size, num_epochs=epochs, perform_shuffle=shuffle,
+                      seed=cfg.seed)
+        ds: Iterable
+        if fmt == "aliccp":
+            ds = AliccpDataset(files, multi_hot_pad=cfg.multi_hot_pad, **common)
+        else:
+            ds = LibsvmDataset(files, field_size=cfg.field_size, **common)
         if split == "tr" and self._sparse_slots is not None:
+            if cfg.mh_coo:
+                # the packer first: the mapper then dedups the live COO
+                # ids instead of every padded slot
+                ds = mapped_batches(ds, MhCooPacker(
+                    self.model.mh_coo_groups(),
+                    floor=max(cfg.mh_coo_floor, 1) if cfg.mh_coo_floor else 1024,
+                    combine=cfg.mh_coo_combine and self.model.coo_combine_ok(),
+                ))
             ds = mapped_batches(ds, SparseBatchMapper(self._sparse_slots, pad_mode=cfg.sparse_pad_mode))
         return _Prefetch(ds, cfg.prefetch_batches)
 

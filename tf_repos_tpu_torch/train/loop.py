@@ -61,8 +61,16 @@ def init_eval_acc(model: CtrModel, device) -> Dict[str, Any]:
     return {
         "loss_sum": torch.zeros((), device=device),
         "weight_sum": torch.zeros((), device=device),
-        "auc": {"auc": M.AucState.init(device)},
+        "auc": {name: M.AucState.init(device) for name in model_metric_names(model)},
     }
+
+
+def model_metric_names(model: CtrModel):
+    """The model's metric names, without running it: eval_metrics only
+    builds a dict of (labels, preds) pairs, so dummy tensors serve."""
+    dummy_out = {k: torch.zeros(1) for k in ("prob", "logits", "pctr", "pcvr", "pctcvr")}
+    dummy_batch = {k: torch.zeros(1) for k in ("label", "y", "z", "mask")}
+    return list(model.eval_metrics(dummy_out, dummy_batch))
 
 
 def finalize_eval(acc) -> Dict[str, float]:

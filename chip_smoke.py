@@ -4,13 +4,15 @@
     python3 chip_smoke.py              # what the checks run
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of the bare steps
     python3 chip_smoke.py --profile --trace=PATH   # and writes their Chrome traces
-                                                   # (PATH, and PATH with _esmm)
+                                                   # (PATH, and PATH with _esmm, _din)
 
-Two main paths, each driven through the CLI with every launch counter
+Three main paths, each driven through the CLI with every launch counter
 set to 0 just before and read just after: DeepFM (the lazy-sparse step
-on K1 expand_rows / K2 accumulate_rows) and ESMM with --mh_coo (which
-adds K3 coo_pool_rows / K4 coo_accumulate_rows). Phases, each fatal on
-failure (exit code 1, no result line):
+on K1 expand_rows / K2 accumulate_rows), ESMM with --mh_coo (which adds
+K3 coo_pool_rows / K4 coo_accumulate_rows) and DIN attention with
+--mh_coo (K1, K2, K5 sorted_segsum, K6 sorted_expand; with
+--coo_sorted_bwd K5 also takes the COO lookup's backward). Phases, each
+fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build of every CUDA kernel from tf_repos_tpu_torch/ops/csrc (one
      nvcc per source, started together, sm_90a);
@@ -31,17 +33,28 @@ failure (exit code 1, no result line):
         expand_rows (bit-exact) and accumulate_rows at the same S on the
         single-valued fields' ids, the table being the w columns of the
         [S, 48] store;
+     c. DIN at the same published point, batches through the port's
+        bucketer, packer (compact segment and idx-sorted streams) and
+        mapper: sorted_segsum at n_out = G (the pooled bags) and at
+        n_out = Su (the idx-sorted runs, where the TPU ran
+        sorted_segsum_packed), in f32 and bf16, plus an all-padding
+        stream, each within 1e-4 * sum_i |v_i| + 1e-6 per element of
+        its plain version (atomics: run-to-run sum order);
+        sorted_expand bit-exact in both dtypes; K1 and K2 on the COO
+        lookup's ids;
   4. the main paths: ``tf_repos_tpu_torch.main`` --task_type=train at
      full width, DeepFM for >= 20 steps on synthetic Zipf libsvm data,
-     ESMM for >= 10 steps on Ali-CCP lines from the port's writer; each
-     kernel of the path must have launched; then each bare sparse step
-     timed on pre-mapped batches;
+     ESMM for >= 10 steps on Ali-CCP lines from the port's writer, DIN
+     for >= 10 steps on the same lines, then DIN --task_type=eval, then
+     DIN with --coo_sorted_bwd (K5 three times a step); each kernel of
+     the path must have launched; then each bare sparse step timed on
+     pre-mapped batches;
   5. 5-step trajectories with f32 towers on the card (kernels) against
      the same steps on the CPU (plain versions), same weights and
-     batches: DeepFM at B=1024, ESMM at B=512 (vocab 50k, pad 64); loss
-     within 1e-4 relative, w|m|v rows within 1e-4 absolute (f32 sums in
-     another order on the card; 1e-4 is a fifth of one Adam step at lr
-     5e-4);
+     batches: DeepFM at B=1024, ESMM and DIN (both DIN legs) at B=512
+     (vocab 50k, pad 64); loss within 1e-4 relative, w|m|v rows within
+     1e-4 absolute (f32 sums in another order on the card; 1e-4 is a
+     fifth of one Adam step at lr 5e-4);
 then the kernel report line and, last, the device line.
 """
 
@@ -63,13 +76,18 @@ sys.path.insert(0, HERE)
 
 from tf_repos_tpu_torch import main as cli  # noqa: E402
 from tf_repos_tpu_torch.config import Config  # noqa: E402
-from tf_repos_tpu_torch.data.ragged import parse_aliccp_lines  # noqa: E402
+from tf_repos_tpu_torch.data.ragged import MH_PAIRS, parse_aliccp_lines  # noqa: E402
 from tf_repos_tpu_torch.data.sparse_batch import (  # noqa: E402
+    MHC_CDEST,
+    MHC_CIDX,
     MHC_CNT,
     MHC_DEST,
     MHC_IDX,
+    MHC_PERM,
+    MHC_SROWS,
     MHC_W,
     MhCooPacker,
+    MhPadBucketer,
     SparseBatchMapper,
 )
 from tf_repos_tpu_torch.data.synthetic import (  # noqa: E402
@@ -82,6 +100,7 @@ from tf_repos_tpu_torch.data.synthetic import (  # noqa: E402
 from tf_repos_tpu_torch.models import create_model  # noqa: E402
 from tf_repos_tpu_torch.ops import build  # noqa: E402
 from tf_repos_tpu_torch.ops import coo_pool as CP  # noqa: E402
+from tf_repos_tpu_torch.ops import sorted_seg as SG  # noqa: E402
 from tf_repos_tpu_torch.ops import sparse_rows as SR  # noqa: E402
 from tf_repos_tpu_torch.train import loop as L  # noqa: E402
 from tf_repos_tpu_torch.train import sparse as SP  # noqa: E402
@@ -117,6 +136,18 @@ ESMM_WIDTH = dict(
 EB = ESMM_WIDTH["batch_size"]
 ESMM_STEPS = 10
 MH_FIELDS = ("u_catids", "u_shopids", "u_brandids", "u_intids", "a_intids")
+
+# the DIN main path: the JAX package's published DIN point
+# (scripts/bench_published.py, cell din_att_coo_fused_table), at full
+# width; it trains on the ESMM path's Ali-CCP lines (same generator)
+DIN_WIDTH = dict(
+    model="DIN", feature_size=4_500_000, field_size=11, embedding_size=16,
+    deep_layers="256,128", attention_layers="256", dropout="1.0,1.0", batch_size=4096,
+    learning_rate=0.0005, l2_reg=0.0001, optimizer="Adam", multi_hot_pad=512,
+    compute_dtype="bfloat16", param_dtype="float32", attention_pooling=True,
+    sparse_table_update=True, fused_table=True, pallas_expand=True, mh_coo=True,
+    mh_bucket="pow2",
+)
 
 
 def log(msg: str) -> None:
@@ -373,6 +404,112 @@ def esmm_kernel_phase(dev):
     return {"t": t, "bound": {n: bound for n in t}, "bound_by": bound_by, "err": err}
 
 
+def din_chain(model, sorted_aux):
+    """The CLI's host chain for DIN --mh_coo training batches: the width
+    bucketer, the COO packer (no combine: the attention is nonlinear in
+    w; the compact segment stream, and the idx-sorted stream when asked),
+    then the dedup mapper."""
+    bucketer = MhPadBucketer(MH_PAIRS, DIN_WIDTH["mh_bucket"])
+    packer = MhCooPacker(model.mh_coo_groups(), cdest_aux=True, sorted_aux=sorted_aux)
+    mapper = SparseBatchMapper(model.sparse_slots())
+    return lambda b: mapper(packer(bucketer(dict(b))))
+
+
+def din_kernel_phase(dev):
+    model = create_model(Config(**DIN_WIDTH))
+    vocab = DIN_WIDTH["feature_size"]
+    raw = esmm_batches(1)[0]
+    mapped = din_chain(model, sorted_aux=True)(raw)
+    cdest, idx, perm, cidx, srows = (torch.from_numpy(mapped[key].reshape(-1)).to(dev) for key in
+                                     (MHC_CDEST, MHC_IDX, MHC_PERM, MHC_CIDX, MHC_SROWS))
+    m, m_live = idx.shape[0], int(mapped[MHC_CNT].sum())
+    s = int(mapped["__uids_emb"].shape[0])
+    uniq = int((mapped["__uids_emb"] < vocab).sum())
+    su, su_live = srows.shape[0], int(mapped[MHC_CIDX][0, m_live - 1]) + 1
+    k = DIN_WIDTH["embedding_size"]
+    g = EB * len(model.mh_coo_groups())
+    log(f"DIN host shapes: {m_live} live COO slots over {len(model.mh_coo_groups())} groups, "
+        f"no combine (COO bucket M={m}); {int((mapped[MHC_CNT] > 0).sum())} non-empty bags of "
+        f"G={g}; {uniq} unique ids (uids bucket S={s}); {su_live} idx-sorted runs (bucket "
+        f"Su={su}); a_int bucketed width {mapped['a_intids'].shape[1]}; K={k}")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    live = (torch.arange(m, device=dev) < m_live)[:, None]
+    # K5 at n_out = G: the pool's values are zero on the padding slots
+    vals = torch.where(live, torch.randn((m, k), generator=gen, device=dev), 0.0)
+    # K5 at n_out = Su: the cotangent gathered into idx-sorted order and
+    # masked past the live count, as the --coo_sorted_bwd backward does
+    sct = torch.where(live, torch.randn((m, k), generator=gen, device=dev).index_select(0, perm), 0.0)
+    src = torch.randn((g, k), generator=gen, device=dev)
+
+    def seg_err(name, v, c, n_out):
+        return held(name, SG.sorted_segsum(v, c, n_out), SG.sorted_segsum_plain(v, c, n_out),
+                    SG.sorted_segsum_plain(v.abs(), c, n_out))
+
+    err = {"sorted_segsum": seg_err("sorted_segsum at n_out=G", vals, cdest, g),
+           "sorted_segsum (n_out=Su)": seg_err("sorted_segsum at n_out=Su", sct, cidx, su)}
+    e_bf = seg_err("sorted_segsum bf16 values", vals.to(torch.bfloat16), cdest, g)
+    e_pad = seg_err("sorted_segsum all-padding stream", torch.zeros((m - m_live, k), device=dev),
+                    torch.zeros(m - m_live, dtype=torch.int32, device=dev), g)
+    check(torch.equal(SG.sorted_expand(src, cdest), SG.sorted_expand_plain(src, cdest)),
+          "sorted_expand differs from src[cdest]")
+    sb = src.to(torch.bfloat16)
+    check(torch.equal(SG.sorted_expand(sb, cdest), sb[cdest]), "sorted_expand bf16")
+    err["sorted_expand"] = 0.0
+    log(f"kernel check sorted_segsum bf16 values ok (max abs err {e_bf:.3e}); all-padding "
+        f"stream M={m - m_live} ok ({e_pad:.3e}); sorted_expand bit-exact in f32 and bf16")
+
+    zg, zs = torch.zeros((g, k), device=dev), torch.zeros((su, k), device=dev)
+    t = {
+        "sorted_segsum": (cuda_ms(lambda: SG.sorted_segsum(vals, cdest, g)),
+                          cuda_ms(lambda: SG.sorted_segsum_plain(vals, cdest, g)),
+                          cuda_ms(lambda: torch.index_add(zg, 0, cdest, vals))),
+        "sorted_segsum (n_out=Su)": (cuda_ms(lambda: SG.sorted_segsum(sct, cidx, su)),
+                                     cuda_ms(lambda: SG.sorted_segsum_plain(sct, cidx, su)),
+                                     cuda_ms(lambda: torch.index_add(zs, 0, cidx, sct))),
+        "sorted_expand": (cuda_ms(lambda: SG.sorted_expand(src, cdest)),
+                          cuda_ms(lambda: SG.sorted_expand_plain(src, cdest)),
+                          cuda_ms(lambda: torch.index_select(src, 0, cdest))),
+    }
+    # least time: the [M, K] values or output, the [M] cdest and the
+    # [n_out, K] rows each moved once (K5's M*K adds are far below the
+    # f32 rate)
+    nbytes = {"sorted_segsum": m * k * 4 + m * 4 + g * k * 4,
+              "sorted_segsum (n_out=Su)": m * k * 4 + m * 4 + su * k * 4,
+              "sorted_expand": m * 4 + g * k * 4 + m * k * 4}
+    adds = {"sorted_segsum": m * k, "sorted_segsum (n_out=Su)": m * k, "sorted_expand": 0}
+    bound = {n: max(b / HBM_BYTES_PER_S, adds[n] / F32_FLOPS) * 1e3 for n, b in nbytes.items()}
+    lib_name = {"sorted_segsum": "index_add", "sorted_segsum (n_out=Su)": "index_add",
+                "sorted_expand": "index_select"}
+    for name in t:
+        ms, plain, lib = t[name]
+        log(f"kernel {name}: max_abs_err {err[name]:.3e}  {ms:.4f} ms  plain {plain:.4f} ms  "
+            f"library ({lib_name[name]}) {lib:.4f} ms  bound {bound[name]:.4f} ms (bytes: "
+            f"{nbytes[name] / 1e6:.1f} MB)")
+
+    # K1 and K2 on the COO lookup of the slots without --coo_sorted_bwd
+    # (N = M ids, padding on row 0): where the hot-row atomics show
+    table = torch.randn((s, 3 * k), generator=gen, device=dev)[:, :k]
+    check(torch.equal(SR.expand_rows(table, idx), SR.expand_rows_plain(table, idx)),
+          "expand_rows at the DIN point differs from table[idx]")
+    g2 = torch.randn((m, k), generator=gen, device=dev)
+    e2 = held("accumulate_rows at the DIN point", SR.accumulate_rows(g2, idx, s),
+              SR.accumulate_rows_plain(g2, idx, s), SR.accumulate_rows_plain(g2.abs(), idx, s))
+    b12 = (m * k * 4 + m * 4 + s * k * 4) / HBM_BYTES_PER_S * 1e3
+    zs2 = torch.zeros((s, k), device=dev)
+    log(f"kernel expand_rows at the DIN COO lookup (S={s}, N={m}, K={k}): bit-exact  "
+        f"{cuda_ms(lambda: SR.expand_rows(table, idx)):.4f} ms  "
+        f"plain {cuda_ms(lambda: SR.expand_rows_plain(table, idx)):.4f} ms  "
+        f"library (index_select) {cuda_ms(lambda: torch.index_select(table, 0, idx)):.4f} ms  "
+        f"bound {b12:.4f} ms (bytes)")
+    log(f"kernel accumulate_rows at the DIN COO lookup (S={s}, N={m}, K={k}, {m - m_live} "
+        f"padding ids on row 0): max_abs_err {e2:.3e}  "
+        f"{cuda_ms(lambda: SR.accumulate_rows(g2, idx, s)):.4f} ms  "
+        f"plain {cuda_ms(lambda: SR.accumulate_rows_plain(g2, idx, s)):.4f} ms  "
+        f"library (index_add) {cuda_ms(lambda: torch.index_add(zs2, 0, idx, g2)):.4f} ms  "
+        f"bound {b12:.4f} ms (bytes)")
+    return {"t": t, "bound": bound, "bound_by": "bytes", "err": err}
+
+
 # ------------------------------------------------------------------ phase 4
 def main_path(dev, work):
     data = os.path.join(work, "data")
@@ -481,6 +618,101 @@ def esmm_bare_step(dev, profile):
     if profile is not None:
         trace = os.path.splitext(profile)[0] + "_esmm.json" if profile else ""
         profile_step("ESMM --mh_coo", lambda i: step(params, opt, mstate, batches[i % 4]), trace)
+    return ms
+
+
+def din_cli(argv, steps_min, label):
+    """One DIN CLI run with every launch counter zeroed just before and
+    read just after; returns (result, launches)."""
+    for mod in (SR, CP, SG):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in (SR.expand_rows, SR.accumulate_rows,
+                                                CP.coo_pool_rows, CP.coo_accumulate_rows,
+                                                SG.sorted_segsum, SG.sorted_expand)}
+    steps = res.get("step", 0)
+    per = {n: c / max(steps, 1) for n, c in launches.items()}
+    log(f"{label}: {steps} steps in {wall:.1f} s wall, launches {launches}, per step {per}")
+    check(steps >= steps_min, f"{label} ran {steps} steps")
+    check(math.isfinite(res["loss"]) and 0.0 <= res.get("auc", -1.0) <= 1.0, f"{label}: {res}")
+    return res, launches
+
+
+def din_main_path(dev, work):
+    """DIN training through the CLI on the ESMM path's Ali-CCP lines, then
+    eval, then the --coo_sorted_bwd leg."""
+    data = os.path.join(work, "esmm_data")
+    argv = [f"--{k}={v}" for k, v in DIN_WIDTH.items()] + [
+        "--num_epochs=1", "--log_steps=5", f"--data_dir={data}", "--dt_dir=smoke",
+        "--eval_throttle_secs=0", f"--device={dev.type}", "--seed=2018",
+    ]
+    res, launches = din_cli(["--task_type=train", f"--model_dir={work}/din_model/", *argv],
+                            ESMM_STEPS, "DIN main path")
+    steps = res["step"]
+    for name in ("expand_rows", "accumulate_rows", "sorted_segsum", "sorted_expand"):
+        check(launches[name] > 0, f"{name} was not launched on the DIN main path")
+    # the two lookups (shared, COO) and the pool/select pair, twice each
+    for name in ("expand_rows", "accumulate_rows", "sorted_segsum", "sorted_expand"):
+        check(launches[name] == 2 * steps, f"DIN: {name} launched {launches[name]} times "
+                                           f"in {steps} steps, expected 2 per step")
+    ev, _ = din_cli(["--task_type=eval", f"--model_dir={work}/din_model/", *argv], 0, "DIN eval")
+    check(abs(ev["loss"] - res["loss"]) <= 1e-4 * abs(res["loss"]),
+          f"DIN eval {ev['loss']} differs from the train run's final eval {res['loss']}")
+    sres, slaunches = din_cli(["--task_type=train", f"--model_dir={work}/din_sorted/",
+                               "--coo_sorted_bwd=true", *argv], 3, "DIN --coo_sorted_bwd")
+    ssteps = sres["step"]
+    check(slaunches["sorted_segsum"] == 3 * ssteps,
+          f"DIN --coo_sorted_bwd: sorted_segsum launched {slaunches['sorted_segsum']} times "
+          f"in {ssteps} steps, expected 3 per step")
+    check(slaunches["accumulate_rows"] == ssteps,
+          "DIN --coo_sorted_bwd: accumulate_rows should take only the shared lookup's backward")
+    check(slaunches["expand_rows"] == 3 * ssteps,
+          "DIN --coo_sorted_bwd: expand_rows should also gather the cotangent into sorted order")
+    # K5 at n_out = Su: the one launch a step beyond the pool/select pair's
+    launches["sorted_segsum (n_out=Su)"] = slaunches["sorted_segsum"] - 2 * ssteps
+    return launches
+
+
+def din_bare_step(dev, profile, sorted_bwd):
+    """The bare DIN --mh_coo sparse step on pre-mapped batches already on
+    the card. profile: None, or the trace path ("" for none)."""
+    cfg = Config(**DIN_WIDTH)
+    model = create_model(cfg)
+    raw = esmm_batches(4, seed=3)
+    chain = din_chain(model, sorted_aux=sorted_bwd)
+    t0 = time.perf_counter()
+    mapped = [chain(b) for b in raw]
+    host_ms = (time.perf_counter() - t0) / len(raw) * 1e3
+    batches = [to_device(b, dev) for b in mapped]
+    torch.cuda.reset_peak_memory_stats()
+    params, mstate = model.init(torch.Generator().manual_seed(0))
+    params = tree_map(lambda x: x.to(dev), params)
+    mstate = tree_map(lambda x: x.to(dev), mstate)
+    tx = make_optimizer("Adam", cfg.learning_rate)
+    sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=True)
+    opt = SP.init_opt_state(model, tx, sopt, params)
+    step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
+    for i in range(3):
+        params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4])
+    torch.cuda.synchronize()
+    n = 20
+    t0 = time.perf_counter()
+    for i in range(n):
+        params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    label = "DIN --mh_coo" + (" --coo_sorted_bwd" if sorted_bwd else "")
+    check(math.isfinite(float(loss)), f"bare {label} step loss {float(loss)}")
+    log(f"bare step {label}: {ms:.3f} ms/step, {EB / ms * 1e3:.0f} examples/s (peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB); host chain (bucketer + packer"
+        f"{' with the idx-sorted stream' if sorted_bwd else ''} + mapper) {host_ms:.1f} ms/batch")
+    if profile is not None:
+        trace = (os.path.splitext(profile)[0] + ("_din_sorted.json" if sorted_bwd else "_din.json")
+                 if profile else "")
+        profile_step(label, lambda i: step(params, opt, mstate, batches[i % 4]), trace)
     return ms
 
 
@@ -608,6 +840,18 @@ def esmm_trajectory(dev):
                 lambda p: [p["ctr_out"]["w"], p["cvr_out"]["w"]])
 
 
+def din_trajectory(dev):
+    cfg = Config(**dict(DIN_WIDTH, feature_size=50_000, batch_size=512, multi_hot_pad=64,
+                        compute_dtype="float32"))
+    model = create_model(cfg)
+    raw = esmm_batches(5, seed=7, batch=512, vocab=50_000, pad=64)
+    for sorted_bwd in (False, True):
+        chain = din_chain(model, sorted_aux=sorted_bwd)
+        card_vs_cpu(f"DIN --mh_coo{' --coo_sorted_bwd' if sorted_bwd else ''} B=512 vocab 50k "
+                    "pad 64", cfg, [chain(b) for b in raw], dev,
+                    lambda p: [p["out"]["w"], p["att_out"]["w"], p["att_mlp"]["layers"][0]["dense"]["w"]])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke needs a GPU",
@@ -645,22 +889,31 @@ def main() -> int:
     try:
         kp = kernel_phase(dev)
         ekp = esmm_kernel_phase(dev)
+        dkp = din_kernel_phase(dev)
         launches = main_path(dev, work)
         elaunches = esmm_main_path(dev, work)
+        dlaunches = din_main_path(dev, work)
         bare = bare_steps(dev, profile)
         ebare = esmm_bare_step(dev, profile)
+        dbare = {sb: din_bare_step(dev, profile, sb) for sb in (False, True)}
         trajectory(dev)
         esmm_trajectory(dev)
+        din_trajectory(dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # K1/K2 launches from the DeepFM main path, K3/K4 from the ESMM one
+    # K1/K2 launches from the DeepFM main path, K3/K4 from the ESMM one,
+    # K5/K6 from the DIN one (K5 at n_out = Su from its --coo_sorted_bwd leg)
     kernels = [
         ("expand_rows", "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164", kp, launches),
         ("accumulate_rows", "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:208", kp, launches),
         ("coo_pool_rows", "coo_pool.cu", "tf_repos_tpu/ops/pallas_sparse.py:463", ekp, elaunches),
         ("coo_accumulate_rows", "coo_pool.cu", "tf_repos_tpu/ops/pallas_sparse.py:514", ekp,
          elaunches),
+        ("sorted_segsum", "sorted_seg.cu", "tf_repos_tpu/ops/pallas_sparse.py:1012", dkp, dlaunches),
+        ("sorted_expand", "sorted_seg.cu", "tf_repos_tpu/ops/pallas_sparse.py:1057", dkp, dlaunches),
+        ("sorted_segsum (n_out=Su)", "sorted_seg.cu", "tf_repos_tpu/ops/pallas_sparse.py:1171", dkp,
+         dlaunches),
     ]
     report = []
     for name, src, replaces, phase, counts in kernels:
@@ -672,7 +925,10 @@ def main() -> int:
             "bound_ms": phase["bound"][name], "bound_by": phase["bound_by"], "library_ms": lib,
         })
     log(f"bare sparse step DeepFM {bare['sparse']:.3f} ms = {B / bare['sparse'] * 1e3:.0f} "
-        f"examples/s, ESMM --mh_coo {ebare:.3f} ms = {EB / ebare * 1e3:.0f} examples/s on {card}")
+        f"examples/s, ESMM --mh_coo {ebare:.3f} ms = {EB / ebare * 1e3:.0f} examples/s, "
+        f"DIN --mh_coo {dbare[False]:.3f} ms = {EB / dbare[False] * 1e3:.0f} examples/s, "
+        f"with --coo_sorted_bwd {dbare[True]:.3f} ms = {EB / dbare[True] * 1e3:.0f} examples/s "
+        f"on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

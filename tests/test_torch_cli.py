@@ -57,7 +57,7 @@ def test_main_train_then_eval(tmp_path, data_dir, extra, capsys):
 
 @pytest.mark.parametrize(
     "flag",
-    ["--mh_bucket=pow2", "--coo_sorted_bwd=true", "--dma_scatter=true", "--slim_transfer=true",
+    ["--fused_moments=true", "--check_numerics=true", "--dma_scatter=true", "--slim_transfer=true",
      "--packed_cache=true", "--field_blocks=0:10", "--mesh_model=2", "--param_dtype=bfloat16", "--map_workers=2",
      "--task_type=export"],
 )

@@ -4,16 +4,18 @@ with a reason elsewhere. Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances as in chip_smoke.py: expand is bit-exact; accumulate adds
-with atomics in run-to-run order, held to 1e-4 of sum_i |g_i| per
-element; the COO pool and its transpose likewise, to 1e-4 of
-sum_i |w_i x_i| per element, plus 1e-6."""
+Tolerances as in chip_smoke.py: expand and the sorted select are
+bit-exact; accumulate adds with atomics in run-to-run order, held to
+1e-4 of sum_i |g_i| per element; the COO pool, its transpose and the
+sorted segment sum likewise, to 1e-4 of sum_i |w_i x_i| (or |v_i|) per
+element, plus 1e-6."""
 
 import numpy as np
 import pytest
 import torch
 
 from tf_repos_tpu_torch.ops import coo_pool as CP
+from tf_repos_tpu_torch.ops import sorted_seg as SG
 from tf_repos_tpu_torch.ops import sparse_rows as SR
 
 pytestmark = pytest.mark.cuda
@@ -160,3 +162,109 @@ def test_coo_wrappers_reject_what_the_kernels_do_not_take(dev):
         CP.coo_pool_rows(table, i32, i32[:2], w, 2)
     with pytest.raises(ValueError, match="float32"):
         CP.coo_accumulate_rows(torch.randn((2, 4), device=dev).double(), i32, i32, w, 10)
+
+
+def _sorted_stream(m_live, pad, n_out, seed=0, p=0.0125):
+    """A packer stream: a sorted live prefix (steps <= 1, ~1/p slots a
+    segment), then ``pad`` slots of cdest 0."""
+    rng = np.random.default_rng(seed)
+    inc = (rng.random(m_live) < p).astype(np.int32)
+    inc[:1] = 0
+    live = np.minimum(np.cumsum(inc), n_out - 1)
+    return torch.from_numpy(np.concatenate([live, np.zeros(pad)]).astype(np.int32))
+
+
+@pytest.mark.parametrize("m_live,pad,n_out,p", [
+    (1_170_000, 140_720, 16_384, 0.0125),  # DIN's published point, n_out = G
+    (1_170_000, 140_720, 100_000, 0.085),  # the --coo_sorted_bwd runs, n_out = Su
+    (100_003, 0, 777, 0.01),  # ragged M, no padding
+    (0, 4096, 64, 0.01),  # an all-padding stream
+    (37, 5, 9, 0.3),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sorted_segsum_matches_plain(dev, m_live, pad, n_out, p, dtype):
+    cdest = _sorted_stream(m_live, pad, n_out, p=p).to(dev)
+    vals = torch.randn((m_live + pad, 16), device=dev)
+    vals[m_live:] = 0.0
+    vals = vals.to(dtype)
+    before = SG.sorted_segsum.launches
+    got = SG.sorted_segsum(vals, cdest, n_out)
+    torch.cuda.synchronize()
+    assert SG.sorted_segsum.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (n_out, 16)
+    want = SG.sorted_segsum_plain(vals, cdest, n_out)
+    scale = SG.sorted_segsum_plain(vals.abs(), cdest, n_out)
+    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("m,n_src,k", [(1_310_720, 16_384, 16), (100_003, 777, 5), (37, 9, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sorted_expand_bit_exact(dev, m, n_src, k, dtype):
+    cdest = _sorted_stream(m - m // 9, m // 9, n_src).to(dev)
+    src = torch.randn((n_src, k), device=dev).to(dtype)
+    before = SG.sorted_expand.launches
+    out = SG.sorted_expand(src, cdest)
+    torch.cuda.synchronize()
+    assert SG.sorted_expand.launches == before + 1
+    assert out.dtype == dtype and torch.equal(out, src[cdest])
+
+
+def test_sorted_seg_grads_on_card_match_cpu(dev):
+    cdest = _sorted_stream(5_000, 700, 300, seed=3, p=0.05)
+    vals = torch.randn((5_700, 16))
+    vals[5_000:] = 0.0
+    src = torch.randn((300, 16))
+    probe_p, probe_s = torch.randn((300, 16)), torch.randn((5_700, 16))
+    pool, sel = SG.make_sorted_seg()
+    grads = []
+    for d in ("cpu", dev):
+        v, s = vals.to(d).requires_grad_(True), src.to(d).requires_grad_(True)
+        c = cdest.to(d)
+        loss = (pool(v, c, 300) * probe_p.to(d)).sum() + (sel(s, c) * probe_s.to(d)).sum()
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, [v, s])])
+    torch.testing.assert_close(grads[1][0], grads[0][0], rtol=0, atol=0)  # a selection
+    scale = SG.sorted_segsum_plain(probe_s.abs(), cdest, 300)
+    assert bool(((grads[1][1] - grads[0][1]).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+def test_sorted_bwd_expand_grad_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(4)
+    s, m, pad = 500, 20_000, 3_000
+    ids_live = np.minimum(rng.zipf(1.2, size=m) - 1, s - 1).astype(np.int32)
+    order = np.argsort(ids_live, kind="stable").astype(np.int32)
+    si = ids_live[order]
+    starts = np.concatenate([[True], si[1:] != si[:-1]])
+    z = np.zeros(pad, np.int32)
+    aux = [torch.from_numpy(np.concatenate([a, z])) for a in
+           (ids_live, order, (np.cumsum(starts) - 1).astype(np.int32))]
+    aux.append(torch.from_numpy(np.concatenate([si[starts], np.zeros(50, np.int32)])))
+    rows = torch.randn((s, 16))
+    probe = torch.randn((m + pad, 16))
+    probe[m:] = 0.0
+    exp = SG.make_sorted_bwd_expand()
+    grads = []
+    for d in ("cpu", dev):
+        r = rows.to(d).requires_grad_(True)
+        out = exp(r, *(a.to(d) for a in aux), torch.tensor(m, device=d))
+        (g,) = torch.autograd.grad((out * probe.to(d)).sum(), r)
+        grads.append(g.cpu())
+    scale = SR.accumulate_rows_plain(probe.abs(), aux[0], s)
+    assert bool(((grads[1] - grads[0]).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+def test_sorted_wrappers_reject_what_the_kernels_do_not_take(dev):
+    i32 = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        SG.sorted_segsum(torch.randn((4, 8), device=dev), i32.long(), 2)
+    with pytest.raises(ValueError, match="dtype"):
+        SG.sorted_segsum(torch.randn((4, 8), device=dev).double(), i32, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        SG.sorted_segsum(torch.randn((8, 4), device=dev).t(), i32, 2)
+    with pytest.raises(ValueError, match="rows of vals"):
+        SG.sorted_segsum(torch.randn((5, 8), device=dev), i32, 2)
+    with pytest.raises(ValueError, match="cdest on"):
+        SG.sorted_expand(torch.randn((4, 8), device=dev), i32.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        SG.sorted_expand(torch.randn((8, 4), device=dev).t(), i32)
+    with pytest.raises(ValueError, match="dtype"):
+        SG.sorted_expand(torch.randn((4, 8), device=dev).half(), i32)

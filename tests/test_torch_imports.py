@@ -41,7 +41,9 @@ def test_modules_listed():
     mods = _modules()
     assert "tf_repos_tpu_torch.ops.sparse_rows" in mods
     assert "tf_repos_tpu_torch.ops.coo_pool" in mods
+    assert "tf_repos_tpu_torch.ops.sorted_seg" in mods
     assert "tf_repos_tpu_torch.models.esmm" in mods
+    assert "tf_repos_tpu_torch.models.din" in mods
     assert "tf_repos_tpu_torch.data.ragged" in mods
     assert "tf_repos_tpu_torch.train.harness" in mods
     assert len(mods) >= 20

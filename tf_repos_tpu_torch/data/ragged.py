@@ -1,5 +1,6 @@
-"""Ali-CCP sample lines -> fixed-shape padded batches for ESMM (the port's
-own copy of the JAX package's data/ragged.py, sample-line input only).
+"""Ali-CCP sample lines -> fixed-shape padded batches for ESMM and DIN (the
+port's own copy of the JAX package's data/ragged.py, sample-line input
+only).
 
 A line is ``sample_id,y,z,field:fid:val field:fid:val ...``. Multi-hot
 fields are padded or truncated to ``multi_hot_pad`` with padding id 0
@@ -39,6 +40,16 @@ AD_SCALAR_FIELDS = {"206": ("a_cat", 16), "207": ("a_shop", 17), "216": ("a_bran
 AD_MH_FIELD = ("210", "a_int", 18)
 
 NUM_COMMON = len(COMMON_FIELDS)
+
+# the padded multi-hot (ids, vals) field pairs of this layout, which
+# --mh_bucket slices (data/sparse_batch.MhPadBucketer); a_int has no vals
+MH_PAIRS = (
+    ("u_catids", "u_catvals"),
+    ("u_shopids", "u_shopvals"),
+    ("u_brandids", "u_brandvals"),
+    ("u_intids", "u_intvals"),
+    ("a_intids", None),
+)
 
 
 def parse_aliccp_lines(lines: Sequence[bytes], multi_hot_pad: int = 64) -> Batch:

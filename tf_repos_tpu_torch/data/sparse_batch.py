@@ -1,6 +1,7 @@
 """Host-side batch preparation for the lazy sparse-table path (the port's
 own copy of the JAX package's data/sparse_batch.py: the dedup mapper,
-the multi-hot COO packer and quarter_pow2). Host numpy only.
+the multi-hot COO packer, the multi-hot width bucketer and
+quarter_pow2). Host numpy only.
 
 For each sparse table (model.sparse_slots()) the mapper computes the
 batch's unique id set and rewrites the batch:
@@ -15,7 +16,9 @@ allocated once and reused.
 Under --mh_coo, MhCooPacker runs first: it replaces the padded
 multi-hot fields by a COO triplet of their live slots (``__mhc_idx``,
 ``__mhc_dest``, ``__mhc_w``, see the class), and the mapper then remaps
-``__mhc_idx`` with the table's other id fields."""
+``__mhc_idx`` (and the run rows ``__mhc_srows``) with the table's other
+id fields. Under --mh_bucket, MhPadBucketer slices the padded multi-hot
+fields to the batch's live width before either runs."""
 
 from __future__ import annotations
 
@@ -31,6 +34,21 @@ MHC_W = "__mhc_w"
 # live slots per (group, row), int32[1, n_groups, B], in the packer's
 # group-major emission order
 MHC_CNT = "__mhc_cnt"
+# compact segment of each live slot (the running count of non-empty
+# (group, row) bags), int32[1, M_pad]: nondecreasing with steps <= 1 over
+# the live prefix, 0 on the padding -- the sorted-stream kernels' index
+# stream (ops/sorted_seg.py; DIN attention)
+MHC_CDEST = "__mhc_cdest"
+# the idx-sorted auxiliary stream (DIN's --coo_sorted_bwd): perm, the
+# stable idx-ascending order of the live slots, int32[1, M_pad]; cidx,
+# the run (distinct idx) of each sorted position, nondecreasing with
+# steps <= 1, int32[1, M_pad]; srows, the table id of each run,
+# int32[1, Su_pad] (the mapper remaps it like __mhc_idx; the remap is
+# monotonic, so order and runs survive). All pad with 0; the device
+# masks sorted positions >= the live count.
+MHC_PERM = "__mhc_perm"
+MHC_CIDX = "__mhc_cidx"
+MHC_SROWS = "__mhc_srows"
 
 
 class SparseBatchMapper:
@@ -78,7 +96,8 @@ class SparseBatchMapper:
             # unique set is the same either way)
             present = [f for f in slot.fields if f in batch]
             fields = [np.asarray(batch[f]) for f in present]
-            if MHC_IDX in batch and len(present) < len(slot.fields):
+            coo_owned = MHC_IDX in batch and len(present) < len(slot.fields)
+            if coo_owned:
                 present.append(MHC_IDX)
                 fields.append(np.asarray(batch[MHC_IDX]))
             ids = np.concatenate([a.ravel() for a in fields])
@@ -96,6 +115,10 @@ class SparseBatchMapper:
             batch[UIDS_PREFIX + name] = uids
             for f, arr in zip(present, fields):
                 batch[f] = np.take(remap, arr, mode="clip")
+            if coo_owned and MHC_SROWS in batch:
+                # the run rows hold raw ids of the COO idx stream (padding
+                # 0 -> row 0, masked off on the device)
+                batch[MHC_SROWS] = np.take(remap, batch[MHC_SROWS], mode="clip")
         return batch
 
 
@@ -139,6 +162,52 @@ def combine_dups(a: np.ndarray, v: Optional[np.ndarray] = None):
     return ids_c, wc, cnt
 
 
+class MhPadBucketer:
+    """Slice padded multi-hot fields to the batch's live width (--mh_bucket).
+
+    The reader pads every multi-hot field to --multi_hot_pad, while true
+    Ali-CCP lengths are mostly far shorter; everything downstream of a
+    padded field (its embedding expand, DIN's attention MLP over
+    [B, pad, 3K]) costs in proportion to the padded width. This bucketer
+    slices each field to a per-field quarter-pow2 bucket of the batch's
+    last live column (growing monotonically across batches;
+    "pow2:<floor>" starts every bucket at <floor>).
+
+    Exact: a column is dropped only where every row has id 0, and id-0
+    slots are dead (the models mask ids > 0). The live width comes from
+    id positions (the last nonzero column), so right-padded and
+    interleaved layouts are both safe.
+
+    pairs: ((ids_field, vals_field | None), ...); vals are sliced with
+    their ids."""
+
+    def __init__(self, pairs, mode: str = "pow2"):
+        floor = 0
+        if mode.startswith("pow2:"):
+            mode, floor = "pow2", int(mode.split(":", 1)[1])
+        if mode != "pow2":
+            raise ValueError(f"--mh_bucket {mode!r} not in ('off', 'pow2', 'pow2:<floor>')")
+        self.pairs = tuple(pairs)
+        self._bucket: Dict[str, int] = {ids: max(floor, 1) for ids, _ in self.pairs}
+
+    def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        batch = dict(batch)
+        for ids_f, vals_f in self.pairs:
+            if ids_f not in batch:
+                continue
+            a = np.asarray(batch[ids_f])
+            p = a.shape[-1]
+            live_cols = (a != 0).any(axis=tuple(range(a.ndim - 1)))
+            width = int(p - np.argmax(live_cols[::-1])) if live_cols.any() else 0
+            bucket = min(max(self._bucket[ids_f], quarter_pow2(width)), p)
+            self._bucket[ids_f] = bucket
+            if bucket < p:
+                batch[ids_f] = a[..., :bucket]
+                if vals_f and vals_f in batch:
+                    batch[vals_f] = np.asarray(batch[vals_f])[..., :bucket]
+        return batch
+
+
 class MhCooPacker:
     """Padded multi-hot groups -> COO triplet of their live slots (--mh_coo).
 
@@ -152,22 +221,33 @@ class MhCooPacker:
       __mhc_cnt  int32[1, n_groups, B]  live slots per (group, row)
 
     Slots are emitted group-major, rows ascending, so each (group, row)
-    bag is contiguous. M_pad grows monotonically over the quarter-pow2
-    ladder from ``floor``; padding entries are idx = dest = 0, w = 0 and
-    add zero into pooled row 0. The leading axis of 1 is the JAX
-    package's data-shard axis (one shard on one device).
+    bag is contiguous. Groups may have different widths (--mh_bucket
+    slices each field on its own). M_pad grows monotonically over the
+    quarter-pow2 ladder from ``floor``; padding entries are idx = dest =
+    0, w = 0 and add zero into pooled row 0. The leading axis of 1 is the
+    JAX package's data-shard axis (one shard on one device).
 
     combine=True sums the weights of duplicate (row, id) pairs per group
     first (combine_dups), exact for sum-pooling consumers only (the
-    harness gates it on model.coo_combine_ok()). The JAX package's DIN
-    streams (sorted_aux, cdest_aux) are not ported."""
+    harness gates it on model.coo_combine_ok()).
 
-    def __init__(self, groups, floor: int = 1024, combine: bool = False):
+    cdest_aux=True adds __mhc_cdest, the compact segment stream of the
+    sorted-stream kernels (DIN attention); sorted_aux=True adds the
+    idx-sorted stream __mhc_perm, __mhc_cidx, __mhc_srows (DIN's
+    --coo_sorted_bwd), whose Su_pad grows monotonically over the
+    quarter-pow2 ladder from 512. Both default to off (the JAX package
+    defaults cdest_aux on; its harness, like the port's, passes both)."""
+
+    def __init__(self, groups, floor: int = 1024, combine: bool = False,
+                 cdest_aux: bool = False, sorted_aux: bool = False):
         if not groups:
             raise ValueError("--mh_coo: model declares no multi-hot groups")
         self.groups = tuple(groups)
         self.combine = bool(combine)
+        self.cdest_aux = bool(cdest_aux)
+        self.sorted_aux = bool(sorted_aux)
         self._bucket = max(int(floor), 1)
+        self._sbucket = 512
 
     def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         batch = dict(batch)
@@ -204,4 +284,27 @@ class MhCooPacker:
         dest[0, :m] = np.concatenate(dest_parts)
         w[0, :m] = np.concatenate(w_parts)
         batch[MHC_IDX], batch[MHC_DEST], batch[MHC_W], batch[MHC_CNT] = idx, dest, w, cnt
+        if self.cdest_aux:
+            cf = cnt[0].reshape(-1)
+            c_of = (np.cumsum(cf > 0) - 1).astype(np.int32)
+            cdest = np.zeros((1, self._bucket), np.int32)
+            cdest[0, :m] = np.repeat(np.maximum(c_of, 0), cf)
+            batch[MHC_CDEST] = cdest
+        if self.sorted_aux:
+            order = np.argsort(idx[0, :m], kind="stable").astype(np.int32)
+            si = idx[0, :m][order]
+            perm = np.zeros((1, self._bucket), np.int32)
+            cidx = np.zeros((1, self._bucket), np.int32)
+            runs = np.zeros(0, np.int32)
+            if m:
+                starts = np.empty(m, np.bool_)
+                starts[0] = True
+                starts[1:] = si[1:] != si[:-1]
+                cidx[0, :m] = (np.cumsum(starts) - 1).astype(np.int32)
+                runs = si[starts]
+            perm[0, :m] = order
+            self._sbucket = max(self._sbucket, quarter_pow2(runs.size))
+            srows = np.zeros((1, self._sbucket), np.int32)
+            srows[0, : runs.size] = runs
+            batch[MHC_PERM], batch[MHC_CIDX], batch[MHC_SROWS] = perm, cidx, srows
         return batch

@@ -1,5 +1,5 @@
-"""Model registry. Ported so far: DeepFM and ESMM (alias DeepCvrMTL);
-every other model name of the JAX package's registry raises
+"""Model registry. Ported so far: DeepFM, ESMM (alias DeepCvrMTL) and
+DIN; every other model name of the JAX package's registry raises
 NotImplementedError."""
 
 from __future__ import annotations
@@ -9,20 +9,21 @@ from typing import Callable, Dict
 from tf_repos_tpu_torch.config import Config
 from tf_repos_tpu_torch.models.base import CtrModel
 from tf_repos_tpu_torch.models.deepfm import DeepFM
+from tf_repos_tpu_torch.models.din import DIN
 from tf_repos_tpu_torch.models.esmm import ESMM
 
 _REGISTRY: Dict[str, Callable[[Config], CtrModel]] = {
-    "deepfm": DeepFM, "esmm": ESMM, "deepcvrmtl": ESMM,
+    "deepfm": DeepFM, "esmm": ESMM, "deepcvrmtl": ESMM, "din": DIN,
 }
 
 # the JAX package's other model names, not ported yet
 _NOT_PORTED = (
-    "lr", "nfm", "afm", "dcn", "deepmvm", "din", "pnn",
+    "lr", "nfm", "afm", "dcn", "deepmvm", "pnn",
     "fnn", "ipnn", "inner", "opnn", "outer", "wide_n_deep", "widedeep", "wdl",
     "wide", "deep",
 )
 
-INPUT_FORMAT: Dict[str, str] = {"ESMM": "aliccp"}
+INPUT_FORMAT: Dict[str, str] = {"ESMM": "aliccp", "DIN": "aliccp"}
 
 
 def model_names():

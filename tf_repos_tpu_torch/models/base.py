@@ -85,6 +85,18 @@ class CtrModel:
         (row, id) pairs first (--mh_coo_combine)."""
         return False
 
+    def wants_sorted_seg(self) -> bool:
+        """True when the model pools its COO slots with the sorted-stream
+        segment kernels (ops/sorted_seg.py), so the packer should emit
+        the compact segment stream __mhc_cdest (4 B per slot)."""
+        return False
+
+    def wants_sorted_aux(self) -> bool:
+        """True when the model's COO lookup can take its backward over the
+        packer's idx-sorted stream (--coo_sorted_bwd: __mhc_perm,
+        __mhc_cidx, __mhc_srows; an O(M) host sort per batch)."""
+        return False
+
     def loss(
         self,
         params: Params,

@@ -18,6 +18,8 @@ import tempfile
 import threading
 from typing import Dict, List
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
@@ -37,6 +39,18 @@ def check_k(what: str, k: int) -> None:
     """Row width limit shared by every kernel wrapper."""
     if not 0 < k < MAX_K:
         raise ValueError(f"{what}: K={k} outside (0, {MAX_K})")
+
+
+def check_index(what: str, name: str, idx: torch.Tensor, device: torch.device) -> None:
+    """An index argument of a kernel: a contiguous 1-D int32 tensor on
+    the kernel's device."""
+    if idx.device != device:
+        raise ValueError(f"{what}: {name} on {idx.device}, expected {device}")
+    if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
+        raise ValueError(
+            f"{what}: {name} must be a contiguous 1-D int32 tensor (got {idx.dtype}, "
+            f"shape {tuple(idx.shape)})"
+        )
 
 
 def check_rc(what: str, rc: int) -> None:

@@ -55,16 +55,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_idx(idx: torch.Tensor, device: torch.device) -> None:
-    if idx.device != device:
-        raise ValueError(f"idx on {idx.device}, expected {device}")
-    if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
-        raise ValueError(
-            f"idx must be a contiguous 1-D int32 tensor (got {idx.dtype}, "
-            f"shape {tuple(idx.shape)})"
-        )
-
-
 def expand_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i,:] = table[idx[i],:]. table [S,K] f32 or bf16 with unit
     column stride (any row stride, e.g. a column slice of a wider row
@@ -73,7 +63,7 @@ def expand_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return expand_rows_plain(table, idx)
     if table.device.type != "cuda":
         raise ValueError(f"expand_rows: unsupported device {table.device}")
-    _check_idx(idx, table.device)
+    build.check_index("expand_rows", "idx", idx, table.device)
     if table.dim() != 2 or table.stride(1) != 1:
         raise ValueError("expand_rows: table must be 2-D with unit column stride")
     if table.dtype not in (torch.float32, torch.bfloat16):
@@ -101,7 +91,7 @@ def accumulate_rows(g: torch.Tensor, idx: torch.Tensor, s: int) -> torch.Tensor:
         return accumulate_rows_plain(g, idx, s)
     if g.device.type != "cuda":
         raise ValueError(f"accumulate_rows: unsupported device {g.device}")
-    _check_idx(idx, g.device)
+    build.check_index("accumulate_rows", "idx", idx, g.device)
     if g.dim() != 2 or not g.is_contiguous():
         raise ValueError("accumulate_rows: g must be a contiguous 2-D tensor")
     if g.dtype not in (torch.float32, torch.bfloat16):
@@ -164,15 +154,20 @@ def make_expand_lookup():
     remapped positions into it. Marked ``static_slice_ok``: the table is
     positionally addressed, so models may serve static-id fields from a
     slice (models/deepfm.py). Its ``coo_pool`` attribute is the COO
-    multi-hot pool on the same compact rows (ops/coo_pool.py), which the
-    models reach through ``getattr(lookup, "coo_pool", ...)``."""
-    # here, not at the top: ops/coo_pool.py builds its plain transpose on
-    # accumulate_rows_plain above
+    multi-hot pool on the same compact rows (ops/coo_pool.py); its
+    ``seg_pool``, ``seg_select`` and ``sorted_bwd_expand`` attributes are
+    the sorted-stream segment pair and the idx-sorted-backward lookup
+    (ops/sorted_seg.py). The models reach each through ``getattr``."""
+    # here, not at the top: ops/coo_pool.py and ops/sorted_seg.py build on
+    # the functions above
     from tf_repos_tpu_torch.ops.coo_pool import make_coo_pool
+    from tf_repos_tpu_torch.ops.sorted_seg import make_sorted_bwd_expand, make_sorted_seg
 
     def lookup(rows: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         return _ExpandLookup.apply(rows, ids)
 
     lookup.static_slice_ok = True
     lookup.coo_pool = make_coo_pool()
+    lookup.seg_pool, lookup.seg_select = make_sorted_seg()
+    lookup.sorted_bwd_expand = make_sorted_bwd_expand()
     return lookup

@@ -1,6 +1,6 @@
 """Trainer harness (counterpart of the JAX package's train/harness.py) for
-task_type=train and eval on one device: DeepFM on libsvm, ESMM on Ali-CCP
-sample lines.
+task_type=train and eval on one device: DeepFM on libsvm, ESMM and DIN on
+Ali-CCP sample lines.
 
   train -> train loop with periodic eval (eval_throttle_secs), checkpoints
            (torch.save under model_dir), a final eval on the va* split
@@ -11,9 +11,13 @@ The step is the lazy sparse step (train/sparse.py) under
 as its inner lookup under --pallas_expand; the dense step otherwise.
 Under --mh_coo the training batches' multi-hot fields are packed into a
 COO triplet on the host (data/sparse_batch.MhCooPacker, before the dedup
-mapper), which the COO pool kernels consume; eval batches stay padded.
---steps_per_dispatch K runs as a plain loop of K steps. Flags whose code
-path the port does not have yet raise NotImplementedError by name."""
+mapper), which the COO pool kernels consume (ESMM), or the sorted-stream
+kernels with the packer's compact segment stream (DIN attention; with
+--coo_sorted_bwd also its idx-sorted stream); eval batches stay padded.
+--mh_bucket slices the padded multi-hot fields of every split to the
+batch's live width first. --steps_per_dispatch K runs as a plain loop of
+K steps. Flags whose code path the port does not have yet
+(check_supported) raise NotImplementedError by name."""
 
 from __future__ import annotations
 
@@ -30,8 +34,13 @@ import torch
 
 from tf_repos_tpu_torch.config import Config, echo_config
 from tf_repos_tpu_torch.data.libsvm import LibsvmDataset, glob_input_files
-from tf_repos_tpu_torch.data.ragged import AliccpDataset
-from tf_repos_tpu_torch.data.sparse_batch import MhCooPacker, SparseBatchMapper, mapped_batches
+from tf_repos_tpu_torch.data.ragged import MH_PAIRS, AliccpDataset
+from tf_repos_tpu_torch.data.sparse_batch import (
+    MhCooPacker,
+    MhPadBucketer,
+    SparseBatchMapper,
+    mapped_batches,
+)
 from tf_repos_tpu_torch.models import create_model, input_format
 from tf_repos_tpu_torch.train import loop as L
 from tf_repos_tpu_torch.train import sparse as SP
@@ -47,8 +56,6 @@ def check_supported(cfg: Config) -> None:
         "--mesh_data>1": cfg.mesh_data > 1,
         "--mesh_model>1": cfg.mesh_model > 1,
         "--dist_mode": cfg.dist_mode != 0,
-        "--mh_bucket": cfg.mh_bucket not in ("", "off"),
-        "--coo_sorted_bwd": cfg.coo_sorted_bwd,
         "--field_blocks": bool(cfg.field_blocks),
         "--dma_scatter": cfg.dma_scatter,
         "--slim_transfer": cfg.slim_transfer,
@@ -170,6 +177,12 @@ class Harness:
                 raise ValueError(
                     f"--mh_coo: {self.model.name} declares no multi-hot groups"
                 )
+        self._mh_bucket = cfg.mh_bucket not in ("", "off")
+        if self._mh_bucket and input_format(self.model) != "aliccp":
+            raise ValueError(
+                "--mh_bucket applies to the Ali-CCP padded multi-hot layout "
+                f"(model {self.model.name} reads {input_format(self.model)})"
+            )
         self._sopt = None
         if self._sparse_slots is not None:
             self._sopt = SP.make_sparse_row_optimizer(
@@ -242,14 +255,30 @@ class Harness:
             ds = AliccpDataset(files, multi_hot_pad=cfg.multi_hot_pad, **common)
         else:
             ds = LibsvmDataset(files, field_size=cfg.field_size, **common)
+        if self._mh_bucket:
+            # live-width slicing first: smaller id arrays for everything after
+            ds = mapped_batches(ds, MhPadBucketer(MH_PAIRS, cfg.mh_bucket))
         if split == "tr" and self._sparse_slots is not None:
             if cfg.mh_coo:
+                combine = cfg.mh_coo_combine and self.model.coo_combine_ok()
+                if cfg.mh_coo_combine and not combine:
+                    print(
+                        f"WARNING: --mh_coo_combine disabled: {self.model.name} consumes "
+                        "the COO w stream nonlinearly (per-slot attention); combining "
+                        "duplicate ids would change its math"
+                    )
                 # the packer first: the mapper then dedups the live COO
-                # ids instead of every padded slot
+                # ids instead of every padded slot. The sorted-stream
+                # kernels need the compact segment stream, and
+                # --coo_sorted_bwd the idx-sorted stream; both only reach
+                # a kernel under --pallas_expand
                 ds = mapped_batches(ds, MhCooPacker(
                     self.model.mh_coo_groups(),
                     floor=max(cfg.mh_coo_floor, 1) if cfg.mh_coo_floor else 1024,
-                    combine=cfg.mh_coo_combine and self.model.coo_combine_ok(),
+                    combine=combine,
+                    cdest_aux=cfg.pallas_expand and self.model.wants_sorted_seg(),
+                    sorted_aux=(cfg.coo_sorted_bwd and cfg.pallas_expand
+                                and self.model.wants_sorted_aux()),
                 ))
             ds = mapped_batches(ds, SparseBatchMapper(self._sparse_slots, pad_mode=cfg.sparse_pad_mode))
         return _Prefetch(ds, cfg.prefetch_batches)

@@ -4,15 +4,17 @@
     python3 chip_smoke.py              # what the checks run
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of the bare steps
     python3 chip_smoke.py --profile --trace=PATH   # and writes their Chrome traces
-                                                   # (PATH, and PATH with _esmm, _din)
+                                                   # (PATH, and PATH with _esmm, _din...)
 
-Three main paths, each driven through the CLI with every launch counter
+Four main paths, each driven through the CLI with every launch counter
 set to 0 just before and read just after: DeepFM (the lazy-sparse step
-on K1 expand_rows / K2 accumulate_rows), ESMM with --mh_coo (which adds
-K3 coo_pool_rows / K4 coo_accumulate_rows) and DIN attention with
---mh_coo (K1, K2, K5 sorted_segsum, K6 sorted_expand; with
---coo_sorted_bwd K5 also takes the COO lookup's backward). Phases, each
-fatal on failure (exit code 1, no result line):
+on K1 expand_rows / K2 accumulate_rows), ESMM with --mh_coo
+--dma_scatter (which adds K3 coo_pool_rows / K4 coo_accumulate_rows and
+the K7 dma_row_scatter write-back), DIN attention with --mh_coo (K1, K2,
+K5 sorted_segsum, K6 sorted_expand; with --coo_sorted_bwd K5 also takes
+the COO lookup's backward) and DeepFM's dense step with --field_blocks
+(K8 field_block_scatter). Phases, each fatal on failure (exit code 1, no
+result line):
   1. the card's name and power limit (nvidia-smi);
   2. build of every CUDA kernel from tf_repos_tpu_torch/ops/csrc (one
      nvcc per source, started together, sm_90a);
@@ -42,19 +44,33 @@ fatal on failure (exit code 1, no result line):
         its plain version (atomics: run-to-run sum order);
         sorted_expand bit-exact in both dtypes; K1 and K2 on the COO
         lookup's ids;
+     d. K7 at the ESMM point (the uids of one batch, S=114,688; the
+        [4.5M+1, 128] lane-padded store, and again at width 48): bit-exact
+        against the masked assignment, timed against index_copy_;
+     e. K8 at the DeepFM point (B=16384, 39 fields in 13 one-row and 26
+        large blocks, W=17) in bf16 and f32 mode, and with out-of-block
+        and -1 ids: within 1e-4 * sum_i |g_i| + 1e-6 per element (atomics:
+        run-to-run sum order), timed against index_add_;
   4. the main paths: ``tf_repos_tpu_torch.main`` --task_type=train at
      full width, DeepFM for >= 20 steps on synthetic Zipf libsvm data,
-     ESMM for >= 10 steps on Ali-CCP lines from the port's writer, DIN
-     for >= 10 steps on the same lines, then DIN --task_type=eval, then
-     DIN with --coo_sorted_bwd (K5 three times a step); each kernel of
-     the path must have launched; then each bare sparse step timed on
-     pre-mapped batches;
+     ESMM (the whole cell esmm_coo_dma_combine: K7 once a step) for >= 10
+     steps on Ali-CCP lines from the port's writer, DIN for >= 10 steps
+     on the same lines, then DIN --task_type=eval, then DIN with
+     --coo_sorted_bwd (K5 three times a step), then DeepFM's dense step
+     with --field_blocks for >= 20 steps on per-field-block libsvm data
+     (K8 once a step); each kernel of the path must have launched; then
+     each bare step timed on pre-mapped batches (DeepFM sparse, with
+     catch-up, dense, dense with --field_blocks; ESMM; DIN, with
+     --coo_sorted_bwd, with --dma_scatter);
   5. 5-step trajectories with f32 towers on the card (kernels) against
      the same steps on the CPU (plain versions), same weights and
-     batches: DeepFM at B=1024, ESMM and DIN (both DIN legs) at B=512
-     (vocab 50k, pad 64); loss within 1e-4 relative, w|m|v rows within
-     1e-4 absolute (f32 sums in another order on the card; 1e-4 is a
-     fifth of one Adam step at lr 5e-4);
+     batches: DeepFM at B=1024, ESMM --dma_scatter and DIN (both DIN
+     legs) at B=512 (vocab 50k, pad 64); loss within 1e-4 relative,
+     w|m|v rows and dense weights within 1e-4 absolute (f32 sums in
+     another order on the card; 1e-4 is a fifth of one Adam step at lr
+     5e-4); DeepFM dense --field_blocks at B=1024: loss within 1e-4
+     relative, and every weight within 1e-4 once the CPU's steps take
+     the card's ReLU gates (field_block_trajectory says why);
 then the kernel report line and, last, the device line.
 """
 
@@ -100,13 +116,15 @@ from tf_repos_tpu_torch.data.synthetic import (  # noqa: E402
 from tf_repos_tpu_torch.models import create_model  # noqa: E402
 from tf_repos_tpu_torch.ops import build  # noqa: E402
 from tf_repos_tpu_torch.ops import coo_pool as CP  # noqa: E402
+from tf_repos_tpu_torch.ops import field_block as FB  # noqa: E402
+from tf_repos_tpu_torch.ops import row_scatter as RS  # noqa: E402
 from tf_repos_tpu_torch.ops import sorted_seg as SG  # noqa: E402
 from tf_repos_tpu_torch.ops import sparse_rows as SR  # noqa: E402
 from tf_repos_tpu_torch.train import loop as L  # noqa: E402
 from tf_repos_tpu_torch.train import sparse as SP  # noqa: E402
 from tf_repos_tpu_torch.train.harness import to_device  # noqa: E402
 from tf_repos_tpu_torch.train.optimizers import make_optimizer  # noqa: E402
-from tf_repos_tpu_torch.utils.tree import tree_map  # noqa: E402
+from tf_repos_tpu_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -124,14 +142,14 @@ STATIC = WIDTH["static_fields"]
 MAIN_STEPS = 21
 
 # the ESMM main path: the JAX package's published Ali-CCP point
-# (scripts/bench_published.py, cell esmm_coo_dma_combine without
-# --dma_scatter), at full width
+# (scripts/bench_published.py, cell esmm_coo_dma_combine), at full width
 ESMM_WIDTH = dict(
     model="ESMM", feature_size=4_500_000, field_size=11, embedding_size=16,
     deep_layers="256,128", dropout="1.0,1.0", batch_size=4096,
     learning_rate=0.0005, l2_reg=0.0001, optimizer="Adam", multi_hot_pad=512,
     compute_dtype="bfloat16", param_dtype="float32", sparse_table_update=True,
     fused_table=True, pallas_expand=True, mh_coo=True, mh_coo_combine=True,
+    dma_scatter=True,
 )
 EB = ESMM_WIDTH["batch_size"]
 ESMM_STEPS = 10
@@ -148,6 +166,17 @@ DIN_WIDTH = dict(
     sparse_table_update=True, fused_table=True, pallas_expand=True, mh_coo=True,
     mh_bucket="pow2",
 )
+
+# the DeepFM dense step with --field_blocks at the benchmark width: the
+# synthetic writer's per-field blocks (zipf_a=0: ids 1..13 for the
+# continuous fields, then 26 equal blocks; data/synthetic.py), the
+# table gradient on K8
+FB_BLOCK = (WIDTH["feature_size"] - 14) // 26
+FB_OFFSETS = tuple(range(1, 14)) + tuple(14 + j * FB_BLOCK for j in range(26))
+FB_SIZES = (1,) * 13 + (FB_BLOCK,) * 26
+FB_WIDTH = dict(WIDTH, sparse_table_update=False, fused_table=False, pallas_expand=False,
+                field_blocks=",".join(f"{o}:{s}" for o, s in zip(FB_OFFSETS, FB_SIZES)))
+FB_STEPS = 20
 
 
 def log(msg: str) -> None:
@@ -510,6 +539,94 @@ def din_kernel_phase(dev):
     return {"t": t, "bound": bound, "bound_by": "bytes", "err": err}
 
 
+def scatter_kernel_phase(dev):
+    """K7 at the ESMM point: the uids of one batch through the port's chain
+    (ascending, the sentinel V after the live ones), rows written into the
+    lane-padded [V+1, 128] store of the ESMM path and, for a later choice of
+    the card's row layout, into an unpadded [V+1, 48] one."""
+    model = create_model(Config(**ESMM_WIDTH))
+    vocab = ESMM_WIDTH["feature_size"]
+    uids = esmm_chain(model)(esmm_batches(1)[0])["__uids_emb"]
+    u = torch.from_numpy(uids).to(dev)
+    s, live = u.shape[0], int((uids < vocab).sum())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for width in (128, 48):
+        store = torch.randn((vocab + 1, width), generator=gen, device=dev)
+        store[-1] = 0.0
+        rows = torch.randn((s, width), generator=gen, device=dev)
+        want = RS.dma_row_scatter_plain(store.clone(), u, rows, vocab)
+        RS.dma_row_scatter(store, u, rows, n_valid=vocab)
+        torch.cuda.synchronize()
+        check(torch.equal(store, want), f"dma_row_scatter at width {width} differs from the "
+                                        "masked assignment")
+        del want
+        u_live, rows_live = u[:live].long(), rows[:live].contiguous()
+        t = (cuda_ms(lambda: RS.dma_row_scatter(store, u, rows, n_valid=vocab)),
+             cuda_ms(lambda: RS.dma_row_scatter_plain(store, u, rows, vocab), iters=10),
+             cuda_ms(lambda: store.index_copy_(0, u_live, rows_live)))
+        # least time: the live rows read and written once, the uids read
+        nbytes = 2 * live * width * 4 + s * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        # the step's row gather from the same store (train/sparse.take_rows)
+        gather = cuda_ms(lambda: store.index_select(0, u))
+        log(f"kernel dma_row_scatter at the ESMM point (store [{vocab + 1}, {width}] f32, S={s}, "
+            f"{live} live): bit-exact  {t[0]:.4f} ms  plain {t[1]:.4f} ms  library (index_copy_) "
+            f"{t[2]:.4f} ms  bound {bound:.4f} ms (bytes: {nbytes / 1e6:.1f} MB); the step's row "
+            f"gather from this store (index_select) {gather:.4f} ms")
+        out[width] = (t, bound)
+        del store, rows, rows_live
+    (t, bound) = out[128]
+    return {"t": {"dma_row_scatter": t}, "bound": {"dma_row_scatter": bound}, "bound_by": "bytes",
+            "err": {"dma_row_scatter": 0.0}}
+
+
+def field_block_kernel_phase(dev):
+    """K8 at the DeepFM point: one batch of the --field_blocks leg's data
+    (per-field blocks), a random f32 cotangent [B, 39, 17], in bf16 (the
+    harness's mode) and f32 mode, plus a case with out-of-block ids and
+    -1 padding rows."""
+    vocab, w = WIDTH["feature_size"], 1 + WIDTH["embedding_size"]
+    ids_np = synthetic_criteo_batch(np.random.default_rng(6), B, vocab)["feat_ids"]
+    ids = torch.from_numpy(ids_np).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    g = torch.randn((B, len(FB_OFFSETS), w), generator=gen, device=dev)
+
+    def err(name, i, use_bf16):
+        args = (vocab, FB_OFFSETS, FB_SIZES, use_bf16)
+        return held(name, FB.field_block_scatter(i, g, *args), FB.field_block_scatter_plain(i, g, *args),
+                    FB.field_block_scatter_plain(i, g.abs(), *args))
+
+    e = {mode: err(f"field_block_scatter {mode}", ids, mode == "bf16") for mode in ("bf16", "f32")}
+    masked = ids_np.copy()
+    masked[: B // 2, 13:] = np.random.default_rng(7).integers(0, vocab, size=(B // 2, 26))
+    masked[-512:] = -1
+    e_m = err("field_block_scatter out-of-block and -1 ids", torch.from_numpy(masked).to(dev), True)
+    log(f"kernel check field_block_scatter: bf16 max abs err {e['bf16']:.3e}, f32 {e['f32']:.3e}, "
+        f"out-of-block and -1 ids {e_m:.3e}")
+    # the library yardstick: one index_add_ of the masked, rounded rows
+    i64 = ids.long()
+    off = torch.tensor(FB_OFFSETS, device=dev)
+    keep = (i64 >= off) & (i64 < off + torch.tensor(FB_SIZES, device=dev))
+    lib_ids = torch.where(keep, i64, 0).reshape(-1)
+    lib_g = torch.where(keep[..., None], g.to(torch.bfloat16).float(), 0.0).reshape(-1, w)
+    args = (vocab, FB_OFFSETS, FB_SIZES, True)
+    t = (cuda_ms(lambda: FB.field_block_scatter(ids, g, *args)),
+         cuda_ms(lambda: FB.field_block_scatter_plain(ids, g, *args)),
+         cuda_ms(lambda: torch.zeros((vocab, w), device=dev).index_add_(0, lib_ids, lib_g)))
+    # least time: ids and g read once, dtable written once (zeroing it
+    # first is a cost of the atomic design, not of the function; the
+    # B*F*W adds are far below the f32 rate)
+    nbytes = ids.numel() * 4 + g.numel() * 4 + vocab * w * 4
+    bound = max(nbytes / HBM_BYTES_PER_S, g.numel() / F32_FLOPS) * 1e3
+    log(f"kernel field_block_scatter (B={B}, F={len(FB_OFFSETS)}, W={w}, vocab {vocab}, 13 one-row "
+        f"blocks + 26 of {FB_BLOCK}; bf16 mode): max_abs_err {e['bf16']:.3e}  {t[0]:.4f} ms  "
+        f"plain {t[1]:.4f} ms  library (index_add_) {t[2]:.4f} ms  bound {bound:.4f} ms (bytes: "
+        f"{nbytes / 1e6:.1f} MB)")
+    return {"t": {"field_block_scatter": t}, "bound": {"field_block_scatter": bound},
+            "bound_by": "bytes", "err": {"field_block_scatter": e["bf16"]}}
+
+
 # ------------------------------------------------------------------ phase 4
 def main_path(dev, work):
     data = os.path.join(work, "data")
@@ -564,16 +681,21 @@ def esmm_main_path(dev, work):
         f"--model_dir={work}/esmm_model/", "--dt_dir=smoke", "--eval_throttle_secs=0",
         f"--device={dev.type}", "--seed=2018",
     ]
-    SR.reset_launches()
-    CP.reset_launches()
+    for mod in (SR, CP, RS):
+        mod.reset_launches()
     t0 = time.perf_counter()
     res = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {f.__name__: f.launches for f in (SR.expand_rows, SR.accumulate_rows,
-                                                CP.coo_pool_rows, CP.coo_accumulate_rows)}
-    log(f"ESMM main path: {res['step']} steps in {wall:.1f} s wall, launches {launches}")
+                                                CP.coo_pool_rows, CP.coo_accumulate_rows,
+                                                RS.dma_row_scatter)}
+    log(f"ESMM main path (--dma_scatter): {res['step']} steps in {wall:.1f} s wall, "
+        f"launches {launches}")
     check(res["step"] >= ESMM_STEPS, f"ESMM main path ran {res['step']} steps")
+    check(launches["dma_row_scatter"] == res["step"],
+          f"ESMM: dma_row_scatter launched {launches['dma_row_scatter']} times in {res['step']} "
+          "steps, expected one write-back a step")
     check(math.isfinite(res["loss"]), f"ESMM main path loss {res['loss']}")
     for name in ("CTR_AUC", "CVR_AUC", "CTCVR_AUC"):
         check(0.0 <= res.get(name, -1.0) <= 1.0, f"ESMM main path {name}: {res}")
@@ -598,7 +720,8 @@ def esmm_bare_step(dev, profile):
     params = tree_map(lambda x: x.to(dev), params)
     mstate = tree_map(lambda x: x.to(dev), mstate)
     tx = make_optimizer("Adam", cfg.learning_rate)
-    sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=True)
+    sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=True,
+                                        dma_scatter=cfg.dma_scatter)
     opt = SP.init_opt_state(model, tx, sopt, params)
     step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
     for i in range(3):
@@ -611,13 +734,15 @@ def esmm_bare_step(dev, profile):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n * 1e3
     check(math.isfinite(float(loss)), f"bare ESMM step loss {float(loss)}")
-    log(f"bare step ESMM --mh_coo: {ms:.3f} ms/step, {EB / ms * 1e3:.0f} examples/s "
-        f"(peak mem {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, the [V+1,48] "
-        f"w|m|v store {opt['sparse']['emb']['wmv'].numel() * 4 / 2**20:.0f} MiB); host chain "
+    wmv = opt["sparse"]["emb"]["wmv"]
+    log(f"bare step ESMM --mh_coo --dma_scatter: {ms:.3f} ms/step, {EB / ms * 1e3:.0f} examples/s "
+        f"(peak mem {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, the {list(wmv.shape)} "
+        f"w|m|v store {wmv.numel() * 4 / 2**20:.0f} MiB); host chain "
         f"(packer with combine + mapper) {host_ms:.1f} ms/batch")
     if profile is not None:
         trace = os.path.splitext(profile)[0] + "_esmm.json" if profile else ""
-        profile_step("ESMM --mh_coo", lambda i: step(params, opt, mstate, batches[i % 4]), trace)
+        profile_step("ESMM --mh_coo --dma_scatter", lambda i: step(params, opt, mstate, batches[i % 4]),
+                     trace)
     return ms
 
 
@@ -676,10 +801,41 @@ def din_main_path(dev, work):
     return launches
 
 
-def din_bare_step(dev, profile, sorted_bwd):
+def field_block_main_path(dev, work):
+    """DeepFM's dense step with --field_blocks through the CLI, on libsvm
+    data in per-field blocks (the blocks --field_blocks names)."""
+    data = os.path.join(work, "fb_data")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    write_synthetic_libsvm(os.path.join(data, "tr.libsvm"), FB_STEPS * B, WIDTH["feature_size"],
+                           seed=3)
+    write_synthetic_libsvm(os.path.join(data, "va.libsvm"), B, WIDTH["feature_size"], seed=4)
+    log(f"field-blocks data: {FB_STEPS * B} train + {B} valid rows written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    argv = [f"--{k}={v}" for k, v in FB_WIDTH.items()] + [
+        "--task_type=train", "--num_epochs=1", "--log_steps=10", f"--data_dir={data}",
+        f"--model_dir={work}/fb_model/", "--dt_dir=smoke", "--eval_throttle_secs=0",
+        f"--device={dev.type}", "--seed=2018",
+    ]
+    FB.reset_launches()
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"field_block_scatter": FB.field_block_scatter.launches}
+    log(f"DeepFM dense --field_blocks: {res['step']} steps in {wall:.1f} s wall, launches {launches}")
+    check(res["step"] >= FB_STEPS, f"DeepFM --field_blocks ran {res['step']} steps")
+    check(math.isfinite(res["loss"]) and 0.0 <= res["auc"] <= 1.0, f"DeepFM --field_blocks: {res}")
+    check(launches["field_block_scatter"] == res["step"],
+          f"field_block_scatter launched {launches['field_block_scatter']} times in {res['step']} "
+          "steps, expected one table gradient a step")
+    return launches
+
+
+def din_bare_step(dev, profile, sorted_bwd, dma_scatter=False):
     """The bare DIN --mh_coo sparse step on pre-mapped batches already on
     the card. profile: None, or the trace path ("" for none)."""
-    cfg = Config(**DIN_WIDTH)
+    cfg = Config(**dict(DIN_WIDTH, dma_scatter=dma_scatter))
     model = create_model(cfg)
     raw = esmm_batches(4, seed=3)
     chain = din_chain(model, sorted_aux=sorted_bwd)
@@ -692,7 +848,8 @@ def din_bare_step(dev, profile, sorted_bwd):
     params = tree_map(lambda x: x.to(dev), params)
     mstate = tree_map(lambda x: x.to(dev), mstate)
     tx = make_optimizer("Adam", cfg.learning_rate)
-    sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=True)
+    sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=True,
+                                        dma_scatter=cfg.dma_scatter)
     opt = SP.init_opt_state(model, tx, sopt, params)
     step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
     for i in range(3):
@@ -704,14 +861,15 @@ def din_bare_step(dev, profile, sorted_bwd):
         params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n * 1e3
-    label = "DIN --mh_coo" + (" --coo_sorted_bwd" if sorted_bwd else "")
+    label = ("DIN --mh_coo" + (" --coo_sorted_bwd" if sorted_bwd else "")
+             + (" --dma_scatter" if dma_scatter else ""))
     check(math.isfinite(float(loss)), f"bare {label} step loss {float(loss)}")
     log(f"bare step {label}: {ms:.3f} ms/step, {EB / ms * 1e3:.0f} examples/s (peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB); host chain (bucketer + packer"
         f"{' with the idx-sorted stream' if sorted_bwd else ''} + mapper) {host_ms:.1f} ms/batch")
     if profile is not None:
-        trace = (os.path.splitext(profile)[0] + ("_din_sorted.json" if sorted_bwd else "_din.json")
-                 if profile else "")
+        suffix = "_din" + ("_sorted" if sorted_bwd else "") + ("_dma" if dma_scatter else "")
+        trace = os.path.splitext(profile)[0] + suffix + ".json" if profile else ""
         profile_step(label, lambda i: step(params, opt, mstate, batches[i % 4]), trace)
     return ms
 
@@ -721,9 +879,12 @@ def bare_steps(dev, profile):
     # the bare sparse step on pre-mapped batches already on the card
     out = {}
     raw = zipf_batches(4)
+    rng = np.random.default_rng(8)
+    blocks = [synthetic_criteo_batch(rng, B, WIDTH["feature_size"]) for _ in range(4)]
+    dense = {"sparse_table_update": False, "fused_table": False, "pallas_expand": False}
     for label, over in (("sparse", {}), ("sparse+catchup", {"sparse_catchup": True}),
-                        ("dense+static", {"sparse_table_update": False, "fused_table": False,
-                                          "pallas_expand": False})):
+                        ("dense+static", dense), ("dense+static, block ids", dense),
+                        ("dense+field_blocks", FB_WIDTH)):
         cfg = Config(**dict(WIDTH, **over))
         model = create_model(cfg)
         torch.cuda.reset_peak_memory_stats()
@@ -738,10 +899,15 @@ def bare_steps(dev, profile):
             step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
             mapper = SparseBatchMapper(model.sparse_slots())
             batches = [to_device(mapper(dict(b)), dev) for b in raw]
+        elif cfg.field_blocks:  # per-field-block ids, the table gradient on K8
+            opt = tx.init(params)
+            step = L.build_train_step(model, tx, lookup=FB.make_field_block_lookup(
+                cfg.feature_size, FB_OFFSETS, FB_SIZES))
+            batches = [to_device(b, dev) for b in blocks]
         else:
             opt = tx.init(params)
             step = L.build_train_step(model, tx)
-            batches = [to_device(b, dev) for b in raw]
+            batches = [to_device(b, dev) for b in (blocks if "block" in label else raw)]
         for i in range(3):
             params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4])
         torch.cuda.synchronize()
@@ -757,6 +923,10 @@ def bare_steps(dev, profile):
             f"(peak mem {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB)")
         if profile is not None and label == "sparse":
             profile_step("DeepFM sparse", lambda i: step(params, opt, mstate, batches[i % 4]), profile)
+        if profile is not None and label == "dense+field_blocks":
+            trace = os.path.splitext(profile)[0] + "_fb.json" if profile else ""
+            profile_step("DeepFM dense --field_blocks", lambda i: step(params, opt, mstate, batches[i % 4]),
+                         trace)
     return out
 
 
@@ -806,7 +976,8 @@ def card_vs_cpu(label, cfg, mapped, dev, dense):
         params = tree_map(lambda x: x.clone().to(d), p0)
         mstate = tree_map(lambda x: x.clone().to(d), m0)
         tx = make_optimizer("Adam", cfg.learning_rate)
-        sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=True)
+        sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=True,
+                                            dma_scatter=cfg.dma_scatter)
         opt = SP.init_opt_state(model, tx, sopt, params)
         step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
         losses = []
@@ -836,7 +1007,7 @@ def esmm_trajectory(dev):
                         compute_dtype="float32"))
     chain = esmm_chain(create_model(cfg))
     mapped = [chain(b) for b in esmm_batches(5, seed=7, batch=512, vocab=50_000, pad=64)]
-    card_vs_cpu("ESMM --mh_coo B=512 vocab 50k pad 64", cfg, mapped, dev,
+    card_vs_cpu("ESMM --mh_coo --dma_scatter B=512 vocab 50k pad 64", cfg, mapped, dev,
                 lambda p: [p["ctr_out"]["w"], p["cvr_out"]["w"]])
 
 
@@ -850,6 +1021,92 @@ def din_trajectory(dev):
         card_vs_cpu(f"DIN --mh_coo{' --coo_sorted_bwd' if sorted_bwd else ''} B=512 vocab 50k "
                     "pad 64", cfg, [chain(b) for b in raw], dev,
                     lambda p: [p["out"]["w"], p["att_out"]["w"], p["att_mlp"]["layers"][0]["dense"]["w"]])
+
+
+class ReluGates:
+    """Stands in for torch.relu (the towers' only gate) to line up the
+    ReLU gates of two runs: "record" keeps each call's gate (x > 0) in
+    call order, "replay" applies the recorded gate at the same call (value
+    and gradient as relu's where the gate is open, else 0), "count" runs
+    relu and counts the elements whose own gate differs from the
+    recorded one."""
+
+    def __init__(self):
+        self.relu, self.gates, self.i, self.mode, self.flips = torch.relu, [], 0, "record", 0
+
+    def __call__(self, x):
+        if self.mode == "record":
+            self.gates.append(x > 0)
+            return self.relu(x)
+        gate = self.gates[self.i].to(x.device)
+        self.i += 1
+        if self.mode == "replay":
+            return torch.where(gate, x, torch.zeros_like(x))
+        self.flips += int(((x > 0) != gate).sum())
+        return self.relu(x)
+
+
+def field_block_trajectory(dev):
+    """5 dense --field_blocks steps (f32 towers, K8 in f32 mode) from the
+    same weights and batches, step by step on the card and twice on the
+    CPU (K8's plain version): once with the CPU's own ReLU gates and once
+    with the card's. Held: loss within 1e-4 relative (own gates), every
+    weight within 1e-4 (the card's gates). Printed, not held: the weights
+    with the CPU's own gates, and how many of its gates differ from the
+    card's. A tower pre-activation within f32 round-off of 0 takes its gate
+    by the order of the sums, which differs between card and CPU; one such
+    flip changes that example's input gradient by a finite step, not by
+    round-off, and the per-field blocks hit most table rows at most
+    once a batch, so those rows' gradients are that one example's. Adam
+    turns the changed gradients, and tower gradients near 1e-8, into steps
+    of up to lr of another size or sign, and the whole weight set moves
+    apart by up to several lr in 5 steps. Lining the gates up removes
+    that, and what is left is the round-off of K8, the GEMMs and Adam."""
+    cfg = Config(**dict(FB_WIDTH, batch_size=1024, compute_dtype="float32"))
+    model = create_model(cfg)
+    rng = np.random.default_rng(7)
+    batches = [synthetic_criteo_batch(rng, 1024, cfg.feature_size) for _ in range(5)]
+    p0, m0 = model.init(torch.Generator().manual_seed(3))
+    k8 = FB.make_field_block_lookup(cfg.feature_size, FB_OFFSETS, FB_SIZES, use_bf16=False)
+    runs = {}
+    for label, where in (("card", dev.type), ("cpu, card's gates", "cpu"), ("cpu", "cpu")):
+        d = torch.device(where)
+        params = tree_map(lambda x: x.clone().to(d), p0)
+        tx = make_optimizer("Adam", cfg.learning_rate)
+        runs[label] = {"d": d, "params": params, "opt": tx.init(params),
+                       "mstate": tree_map(lambda x: x.clone().to(d), m0),
+                       "step": L.build_train_step(model, tx, lookup=k8), "losses": []}
+    gates = ReluGates()
+    torch.relu = gates
+    try:
+        for b in batches:
+            gates.gates = []
+            for label, mode in (("card", "record"), ("cpu, card's gates", "replay"), ("cpu", "count")):
+                r = runs[label]
+                gates.mode, gates.i = mode, 0
+                r["params"], r["opt"], r["mstate"], loss = r["step"](
+                    r["params"], r["opt"], r["mstate"], to_device(b, r["d"]))
+                r["losses"].append(float(loss))
+    finally:
+        torch.relu = gates.relu
+
+    def diff(a, b):
+        ra, rb = runs[a], runs[b]
+        return (max(abs(x - y) / abs(x) for x, y in zip(ra["losses"], rb["losses"])),
+                max(float((x.cpu() - y.cpu()).abs().max())
+                    for x, y in zip(tree_leaves(ra["params"]), tree_leaves(rb["params"]))))
+
+    rel, w_own = diff("cpu", "card")
+    rel_g, w_g = diff("cpu, card's gates", "card")
+    n_gates = sum(g.numel() for g in gates.gates) * len(batches)
+    log(f"trajectory DeepFM dense --field_blocks B=1024 f32, 5 steps: losses cpu "
+        f"{runs['cpu']['losses']} card {runs['card']['losses']}; max rel loss diff {rel:.3e}; "
+        f"with the card's ReLU gates on the CPU: max rel loss diff {rel_g:.3e}, max weight diff "
+        f"{w_g:.3e}; with the CPU's own gates: {gates.flips} of {n_gates} gates differ from the "
+        f"card's, max weight diff {w_own:.3e} (not held)")
+    check(rel <= 1e-4, f"DeepFM --field_blocks: card vs CPU loss trajectory differs: {rel}")
+    check(rel_g <= 1e-4 and w_g <= 1e-4,
+          f"DeepFM --field_blocks: card vs CPU with the card's gates differ: {rel_g} {w_g}")
 
 
 def main() -> int:
@@ -890,20 +1147,26 @@ def main() -> int:
         kp = kernel_phase(dev)
         ekp = esmm_kernel_phase(dev)
         dkp = din_kernel_phase(dev)
+        skp = scatter_kernel_phase(dev)
+        fkp = field_block_kernel_phase(dev)
         launches = main_path(dev, work)
         elaunches = esmm_main_path(dev, work)
         dlaunches = din_main_path(dev, work)
+        flaunches = field_block_main_path(dev, work)
         bare = bare_steps(dev, profile)
         ebare = esmm_bare_step(dev, profile)
         dbare = {sb: din_bare_step(dev, profile, sb) for sb in (False, True)}
+        dbare["dma"] = din_bare_step(dev, profile, False, dma_scatter=True)
         trajectory(dev)
         esmm_trajectory(dev)
         din_trajectory(dev)
+        field_block_trajectory(dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # K1/K2 launches from the DeepFM main path, K3/K4 from the ESMM one,
-    # K5/K6 from the DIN one (K5 at n_out = Su from its --coo_sorted_bwd leg)
+    # K1/K2 launches from the DeepFM main path, K3/K4 and K7 from the ESMM
+    # one, K5/K6 from the DIN one (K5 at n_out = Su from its --coo_sorted_bwd
+    # leg), K8 from the DeepFM --field_blocks one
     kernels = [
         ("expand_rows", "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164", kp, launches),
         ("accumulate_rows", "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:208", kp, launches),
@@ -914,6 +1177,9 @@ def main() -> int:
         ("sorted_expand", "sorted_seg.cu", "tf_repos_tpu/ops/pallas_sparse.py:1057", dkp, dlaunches),
         ("sorted_segsum (n_out=Su)", "sorted_seg.cu", "tf_repos_tpu/ops/pallas_sparse.py:1171", dkp,
          dlaunches),
+        ("dma_row_scatter", "row_scatter.cu", "tf_repos_tpu/ops/pallas_sparse.py:1472", skp, elaunches),
+        ("field_block_scatter", "field_block.cu", "tf_repos_tpu/ops/pallas_embedding.py:103", fkp,
+         flaunches),
     ]
     report = []
     for name, src, replaces, phase, counts in kernels:
@@ -925,9 +1191,12 @@ def main() -> int:
             "bound_ms": phase["bound"][name], "bound_by": phase["bound_by"], "library_ms": lib,
         })
     log(f"bare sparse step DeepFM {bare['sparse']:.3f} ms = {B / bare['sparse'] * 1e3:.0f} "
-        f"examples/s, ESMM --mh_coo {ebare:.3f} ms = {EB / ebare * 1e3:.0f} examples/s, "
+        f"examples/s, dense --field_blocks {bare['dense+field_blocks']:.3f} ms = "
+        f"{B / bare['dense+field_blocks'] * 1e3:.0f} examples/s, ESMM --mh_coo --dma_scatter "
+        f"{ebare:.3f} ms = {EB / ebare * 1e3:.0f} examples/s, "
         f"DIN --mh_coo {dbare[False]:.3f} ms = {EB / dbare[False] * 1e3:.0f} examples/s, "
-        f"with --coo_sorted_bwd {dbare[True]:.3f} ms = {EB / dbare[True] * 1e3:.0f} examples/s "
+        f"with --coo_sorted_bwd {dbare[True]:.3f} ms = {EB / dbare[True] * 1e3:.0f} examples/s, "
+        f"with --dma_scatter {dbare['dma']:.3f} ms = {EB / dbare['dma'] * 1e3:.0f} examples/s "
         f"on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -57,8 +57,8 @@ def test_main_train_then_eval(tmp_path, data_dir, extra, capsys):
 
 @pytest.mark.parametrize(
     "flag",
-    ["--fused_moments=true", "--check_numerics=true", "--dma_scatter=true", "--slim_transfer=true",
-     "--packed_cache=true", "--field_blocks=0:10", "--mesh_model=2", "--param_dtype=bfloat16", "--map_workers=2",
+    ["--fused_moments=true", "--check_numerics=true", "--task_type=infer", "--slim_transfer=true",
+     "--packed_cache=true", "--profile_steps=2", "--mesh_model=2", "--param_dtype=bfloat16", "--map_workers=2",
      "--task_type=export"],
 )
 def test_unsupported_flags_raise(tmp_path, data_dir, flag):

@@ -4,19 +4,22 @@ with a reason elsewhere. Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances as in chip_smoke.py: expand and the sorted select are
-bit-exact; accumulate adds with atomics in run-to-run order, held to
-1e-4 of sum_i |g_i| per element; the COO pool, its transpose and the
-sorted segment sum likewise, to 1e-4 of sum_i |w_i x_i| (or |v_i|) per
-element, plus 1e-6."""
+Tolerances as in chip_smoke.py: expand, the sorted select and the row
+scatter are bit-exact; accumulate adds with atomics in run-to-run order,
+held to 1e-4 of sum_i |g_i| per element; the COO pool, its transpose,
+the sorted segment sum and the field-block scatter likewise, to 1e-4 of
+sum_i |w_i x_i| (or |v_i|, |g_i|) per element, plus 1e-6."""
 
 import numpy as np
 import pytest
 import torch
 
 from tf_repos_tpu_torch.ops import coo_pool as CP
+from tf_repos_tpu_torch.ops import field_block as FB
+from tf_repos_tpu_torch.ops import row_scatter as RS
 from tf_repos_tpu_torch.ops import sorted_seg as SG
 from tf_repos_tpu_torch.ops import sparse_rows as SR
+from tf_repos_tpu_torch.train import sparse as SP
 
 pytestmark = pytest.mark.cuda
 
@@ -268,3 +271,133 @@ def test_sorted_wrappers_reject_what_the_kernels_do_not_take(dev):
         SG.sorted_expand(torch.randn((8, 4), device=dev).t(), i32)
     with pytest.raises(ValueError, match="dtype"):
         SG.sorted_expand(torch.randn((4, 8), device=dev).half(), i32)
+
+
+def _scatter_case(v, s, live, seed=0):
+    """u: ``live`` unique ascending ids below v, then the sentinel v (and
+    one id beyond it) up to s."""
+    rng = np.random.default_rng(seed)
+    u = np.sort(rng.choice(v, size=live, replace=False))
+    pad = np.full(s - live, v)
+    pad[-1:] = v + 7
+    return torch.from_numpy(np.concatenate([u, pad]).astype(np.int32))
+
+
+@pytest.mark.parametrize("v,width,s,live", [
+    (4_500_000, 128, 114_688, 107_345),  # the ESMM published point, lane-padded store
+    (4_500_000, 48, 114_688, 107_345),  # the same at the unpadded width 3K
+    (1000, 17, 300, 280),  # odd width: 4-byte copy units
+    (50, 8, 40, 30),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_scatter_bit_exact(dev, v, width, s, live, dtype):
+    store = torch.randn((v + 1, width), device=dev).to(dtype)
+    store[-1] = 0
+    u = _scatter_case(v, s, live).to(dev)
+    rows = torch.randn((s, width), device=dev)  # f32: cast to the store's dtype
+    want = RS.dma_row_scatter_plain(store.clone(), u, rows, v)
+    before = RS.dma_row_scatter.launches
+    got = RS.dma_row_scatter(store, u, rows, n_valid=v)
+    torch.cuda.synchronize()
+    assert RS.dma_row_scatter.launches == before + 1 and got is store
+    assert torch.equal(store, want) and not bool(store[-1].any())
+
+
+def test_row_scatter_strided_rows(dev):
+    """rows a column slice of a wider tensor (row stride 2L): 4-byte units."""
+    store = torch.zeros((101, 64), device=dev)
+    u = _scatter_case(100, 64, 50).to(dev)
+    wide = torch.randn((64, 128), device=dev)
+    RS.dma_row_scatter(store, u, wide[:, 32:96], n_valid=100)
+    torch.cuda.synchronize()
+    assert torch.equal(store, RS.dma_row_scatter_plain(torch.zeros_like(store), u, wide[:, 32:96], 100))
+
+
+def test_expand_reads_w_columns_at_stride_128(dev):
+    su = torch.randn((114_688, 128), device=dev)
+    idx = _zipf(57_344, 114_688).to(dev)
+    assert torch.equal(SR.expand_rows(su[:, :16], idx), su[:, :16][idx])
+
+
+def test_dma_scatter_steps_on_card_match_cpu(dev):
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.standard_normal((500, 6)).astype(np.float32))
+    us = [torch.from_numpy(np.concatenate([np.sort(rng.choice(500, 90, replace=False)),
+                                           np.full(38, 500)]).astype(np.int32)) for _ in range(3)]
+    gs = [torch.from_numpy(rng.standard_normal((128, 6)).astype(np.float32)) for _ in range(3)]
+    stores = []
+    for d in ("cpu", dev):
+        sopt = SP.make_sparse_row_optimizer("Adam", 1e-2, fused_table=True, dma_scatter=True)
+        aux = sopt.init(table.to(d))
+        for u, g in zip(us, gs):
+            u = u.to(d)
+            sopt.apply(aux, sopt.gather(aux, u), u, g.to(d))
+        stores.append(aux["wmv"].cpu())
+    torch.testing.assert_close(stores[1], stores[0], rtol=1e-6, atol=1e-7)
+    assert not bool(stores[1][:, 18:].any()) and not bool(stores[1][-1].any())
+
+
+def _blocks():
+    """The DeepFM point's layout: 13 one-row blocks, 26 of 4,521 rows."""
+    offsets = tuple(range(1, 14)) + tuple(14 + j * 4521 for j in range(26))
+    return offsets, (1,) * 13 + (4521,) * 26, 117_581
+
+
+@pytest.mark.parametrize("b,case", [(16_384, "deepfm"), (1_000, "masked"), (37, "overlap")])
+@pytest.mark.parametrize("use_bf16", [True, False])
+def test_field_block_scatter_matches_plain(dev, b, case, use_bf16):
+    rng = np.random.default_rng(5)
+    if case == "overlap":
+        offsets, sizes, vocab = (0, 20, 30, 30, 5), (40, 30, 10, 25, 1), 64
+    else:
+        offsets, sizes, vocab = _blocks()
+    ids = np.stack([rng.integers(o, o + s, size=b) for o, s in zip(offsets, sizes)], axis=1)
+    if case == "masked":  # out-of-block ids and -1 padding
+        ids[: b // 2, 13:] = rng.integers(0, vocab, size=(b // 2, 26))
+        ids[-50:] = -1
+    ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    g = torch.randn((b, len(offsets), 17), device=dev)
+    before = FB.field_block_scatter.launches
+    got = FB.field_block_scatter(ids, g, vocab, offsets, sizes, use_bf16)
+    torch.cuda.synchronize()
+    assert FB.field_block_scatter.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (vocab, 17)
+    want = FB.field_block_scatter_plain(ids, g, vocab, offsets, sizes, use_bf16)
+    scale = FB.field_block_scatter_plain(ids, g.abs(), vocab, offsets, sizes, use_bf16)
+    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+def test_field_block_lookup_grad_on_card_matches_cpu(dev):
+    offsets, sizes, vocab = _blocks()
+    rng = np.random.default_rng(6)
+    ids = torch.from_numpy(np.stack([rng.integers(o, o + s, size=2048) for o, s in
+                                     zip(offsets, sizes)], axis=1).astype(np.int32))
+    table = torch.from_numpy(rng.standard_normal((vocab, 17)).astype(np.float32))
+    probe = torch.randn((2048, 39, 17))
+    lookup = FB.make_field_block_lookup(vocab, offsets, sizes)
+    grads = []
+    for d in ("cpu", dev):
+        t = table.to(d).requires_grad_(True)
+        (g,) = torch.autograd.grad((lookup(t, ids.to(d)) * probe.to(d)).sum(), t)
+        grads.append(g.cpu())
+    scale = FB.field_block_scatter_plain(ids, probe.abs(), vocab, offsets, sizes)
+    assert bool(((grads[1] - grads[0]).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
+    store = torch.zeros((11, 8), device=dev)
+    u = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        RS.dma_row_scatter(store, u.long(), torch.zeros((4, 8), device=dev), 10)
+    with pytest.raises(ValueError, match="expected"):
+        RS.dma_row_scatter(store, u, torch.zeros((4, 6), device=dev), 10)
+    with pytest.raises(ValueError, match="dtype"):
+        RS.dma_row_scatter(store.double(), u, torch.zeros((4, 8), device=dev), 10)
+    ids = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    g = torch.zeros((4, 2, 3), device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        FB.field_block_scatter(ids.long(), g, 10, (0, 5), (5, 5))
+    with pytest.raises(ValueError, match="float32"):
+        FB.field_block_scatter(ids, g.double(), 10, (0, 5), (5, 5))
+    with pytest.raises(ValueError, match="offsets"):
+        FB.field_block_scatter(ids, g, 10, (0,), (5,))

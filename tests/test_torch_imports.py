@@ -42,6 +42,9 @@ def test_modules_listed():
     assert "tf_repos_tpu_torch.ops.sparse_rows" in mods
     assert "tf_repos_tpu_torch.ops.coo_pool" in mods
     assert "tf_repos_tpu_torch.ops.sorted_seg" in mods
+    assert "tf_repos_tpu_torch.ops.row_scatter" in mods
+    assert "tf_repos_tpu_torch.ops.field_block" in mods
+    assert "tf_repos_tpu_torch.features.criteo" in mods
     assert "tf_repos_tpu_torch.models.esmm" in mods
     assert "tf_repos_tpu_torch.models.din" in mods
     assert "tf_repos_tpu_torch.data.ragged" in mods

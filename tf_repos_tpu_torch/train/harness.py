@@ -8,7 +8,9 @@ Ali-CCP sample lines.
 
 The step is the lazy sparse step (train/sparse.py) under
 --sparse_table_update, with the hand-written expand/accumulate kernels
-as its inner lookup under --pallas_expand; the dense step otherwise.
+as its inner lookup under --pallas_expand and the row-scatter write-back
+under --dma_scatter; the dense step otherwise, whose table gradient goes
+through the field-block scatter kernel under --field_blocks.
 Under --mh_coo the training batches' multi-hot fields are packed into a
 COO triplet on the host (data/sparse_batch.MhCooPacker, before the dedup
 mapper), which the COO pool kernels consume (ESMM), or the sorted-stream
@@ -56,8 +58,6 @@ def check_supported(cfg: Config) -> None:
         "--mesh_data>1": cfg.mesh_data > 1,
         "--mesh_model>1": cfg.mesh_model > 1,
         "--dist_mode": cfg.dist_mode != 0,
-        "--field_blocks": bool(cfg.field_blocks),
-        "--dma_scatter": cfg.dma_scatter,
         "--slim_transfer": cfg.slim_transfer,
         "--packed_cache": cfg.packed_cache,
         "--fused_moments": cfg.fused_moments,
@@ -187,7 +187,7 @@ class Harness:
         if self._sparse_slots is not None:
             self._sopt = SP.make_sparse_row_optimizer(
                 cfg.optimizer, cfg.learning_rate, fused_table=cfg.fused_table,
-                catchup=cfg.sparse_catchup,
+                catchup=cfg.sparse_catchup, dma_scatter=cfg.dma_scatter,
             )
         self._train_step = None
 
@@ -217,6 +217,26 @@ class Harness:
 
         return make_expand_lookup()
 
+    def field_block_lookup(self):
+        """The field-block lookup under --field_blocks (``off:size,...`` or
+        ``auto:<feature_map>``): the plain gather forward and the K8
+        field_block_scatter backward (ops/field_block.py). The dense step
+        only: the lazy sparse step never reads the flag. None otherwise."""
+        cfg = self.cfg
+        if not cfg.field_blocks or self._sparse_slots is not None:
+            return None
+        if cfg.field_blocks.startswith("auto:"):
+            from tf_repos_tpu_torch.features.criteo import field_blocks_from_feature_map
+
+            offsets, sizes = field_blocks_from_feature_map(cfg.field_blocks[5:])
+        else:
+            pairs = [p.split(":") for p in cfg.field_blocks.split(",")]
+            offsets = tuple(int(a) for a, _ in pairs)
+            sizes = tuple(int(b) for _, b in pairs)
+        from tf_repos_tpu_torch.ops.field_block import make_field_block_lookup
+
+        return make_field_block_lookup(cfg.feature_size, offsets, sizes)
+
     def _get_train_step(self):
         """Unified signature: (state, device_batch, generator) -> (state, loss)."""
         if self._train_step is not None:
@@ -226,7 +246,7 @@ class Harness:
                 self.model, self.tx, self._sopt, lookup=self.inner_lookup()
             )
         else:
-            inner = L.build_train_step(self.model, self.tx)
+            inner = L.build_train_step(self.model, self.tx, lookup=self.field_block_lookup())
 
         def step(state, batch, generator):
             p, o, m, loss = inner(

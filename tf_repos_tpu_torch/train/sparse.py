@@ -26,6 +26,7 @@ import torch
 
 from tf_repos_tpu_torch.data.sparse_batch import UIDS_PREFIX
 from tf_repos_tpu_torch.ops.embedding import dense_lookup
+from tf_repos_tpu_torch.ops.row_scatter import dma_row_scatter
 from tf_repos_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 
@@ -130,24 +131,44 @@ class AdamRowOpt(SparseRowOpt):
 class FusedTableRowOpt(SparseRowOpt):
     """Lazy Adam over one [V+1, 3K] row store of w | m | v: one row
     gather serves the forward and the moments, one row write-back stores
-    all three."""
+    all three.
+
+    dma_scatter (--dma_scatter): the store is lane-padded to [V+1, L],
+    L = 3K rounded up to 128 (the JAX package's layout, so the state
+    compares whole with its), the lanes past 3K held at zero, and the
+    write-back is K7 dma_row_scatter (ops/row_scatter.py) of the 3K
+    live lanes with n_valid = V: the sentinel's row is dropped in the
+    kernel, so the spare row V is never written and needs no
+    re-zeroing."""
 
     fused = True
 
+    def __init__(self, learning_rate: float, catchup: bool, dma_scatter: bool = False):
+        super().__init__(learning_rate, catchup)
+        self.dma_scatter = dma_scatter
+
     def init(self, table: torch.Tensor) -> Dict[str, Any]:
         k = table.shape[-1]
+        if self.dma_scatter:
+            if table.dtype != torch.float32:
+                raise ValueError(
+                    "--dma_scatter requires f32 tables (the JAX package's lane-padded "
+                    "layout is f32 only): drop --param_dtype=bfloat16"
+                )
+            width = -(-3 * k // 128) * 128
+        else:
+            width = 3 * k
         wmv = torch.cat(
-            [table, torch.zeros(table.shape[:-1] + (2 * k,), dtype=table.dtype, device=table.device)],
+            [table, torch.zeros(table.shape[:-1] + (width - k,), dtype=table.dtype, device=table.device)],
             dim=-1,
         )
-        aux = {"wmv": row_store(wmv), "t": 0}
+        aux = {"wmv": row_store(wmv), "k": k, "t": 0}
         if self.catchup:
             aux["last"] = torch.zeros(table.shape[0] + 1, dtype=torch.int32, device=table.device)
         return aux
 
     def table(self, aux) -> torch.Tensor:
-        k = aux["wmv"].shape[-1] // 3
-        return aux["wmv"][:-1, :k]
+        return aux["wmv"][:-1, : aux["k"]]
 
     def gather(self, aux, u: torch.Tensor) -> torch.Tensor:
         return take_rows_f32(aux["wmv"], u)
@@ -155,12 +176,18 @@ class FusedTableRowOpt(SparseRowOpt):
     @torch.no_grad()
     def apply(self, aux, su, u, g) -> torch.Tensor:
         t = aux["t"] + 1
-        k = g.shape[-1]
+        k = aux["k"]
         d1, d2 = self._decays(aux, u, t)
         w1, m1, v1 = self._adam(
             su[:, :k], su[:, k : 2 * k], su[:, 2 * k : 3 * k], g, d1, d2, t
         )
-        put_rows(aux["wmv"], u, torch.cat([w1, m1, v1], dim=-1))
+        store, rows = aux["wmv"], torch.cat([w1, m1, v1], dim=-1)
+        if self.dma_scatter:
+            # only the 3K live lanes: the pad lanes are zero from init and
+            # nothing writes them
+            dma_row_scatter(store[:, : 3 * k], u, rows, n_valid=store.shape[0] - 1)
+        else:
+            put_rows(store, u, rows)
         self._touch(aux, u, t)
         return self.table(aux)
 
@@ -170,15 +197,23 @@ def make_sparse_row_optimizer(
     learning_rate: float,
     fused_table: bool = False,
     catchup: bool = False,
+    dma_scatter: bool = False,
 ) -> SparseRowOpt:
     """Adam only in this slice (plain or fused [V,3K] storage, with or
-    without per-row moment catch-up)."""
+    without per-row moment catch-up; with dma_scatter the fused store is
+    lane-padded and written back by K7)."""
     if name.lower() != "adam":
         raise NotImplementedError(
             f"sparse-row optimizer {name!r}: not ported to tf_repos_tpu_torch yet (Adam only)"
         )
-    cls = FusedTableRowOpt if fused_table else AdamRowOpt
-    return cls(learning_rate, catchup)
+    if dma_scatter and not fused_table:
+        raise ValueError(
+            "--dma_scatter requires --fused_table (the row scatter replaces the "
+            "fused [V,L] store's one write-back; the unfused layouts keep theirs)"
+        )
+    if fused_table:
+        return FusedTableRowOpt(learning_rate, catchup, dma_scatter)
+    return AdamRowOpt(learning_rate, catchup)
 
 
 def split_params(params: Dict[str, Any], slot_names) -> Tuple[Dict, Dict]:

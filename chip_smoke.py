@@ -25,13 +25,17 @@ result line):
         accumulate_rows (atomics, run-to-run sum order) must satisfy
         |kernel - plain| <= 1e-4 * sum_i |g_i| per element: f32
         round-off grows like sqrt(n) * 6e-8 <= 4e-5 of that sum for the
-        hottest row of 425,984 slots;
+        hottest row of 425,984 slots; and at the edges of its
+        sort-and-reduce (one tile on one id; N = T-1, T, T+1 at K = 5,
+        16, 17, 48; +-0 rows and a NaN row, which must come out NaN as
+        with index_add_);
      b. ESMM at the published Ali-CCP point (4.5M vocab, B=4096, K=16,
         pad 512, published multi-hot lengths, Zipf(1.2) ids, the port's
         packer with combine and its mapper) plus a shuffled-triplet, a
         pad-heavy and (K3) a bf16-table case: coo_pool_rows and
         coo_accumulate_rows must satisfy |kernel - plain| <=
-        1e-4 * sum_i |w_i x_i| + 1e-6 per element, for the same reason;
+        1e-4 * sum_i |w_i x_i| + 1e-6 per element, for the same reason,
+        and coo_accumulate_rows at its tile's edges as accumulate_rows;
         expand_rows (bit-exact) and accumulate_rows at the same S on the
         single-valued fields' ids, the table being the w columns of the
         [S, 48] store;
@@ -43,7 +47,10 @@ result line):
         stream, each within 1e-4 * sum_i |v_i| + 1e-6 per element of
         its plain version (atomics: run-to-run sum order);
         sorted_expand bit-exact in both dtypes; K1 and K2 on the COO
-        lookup's ids;
+        lookup's ids, and K2 on the shared lookup's ids (the step's own
+        layout, a cotangent of exactly 0 on the a_int padding slots);
+        beside each K2 and K4 time, the longest chain: the most slots on
+        one id (host bincount) and the tiles that hold it;
      d. K7 at the ESMM point (the uids of one batch, S=114,688; the
         [4.5M+1, 128] lane-padded store, and again at width 48): bit-exact
         against the masked assignment, timed against index_copy_;
@@ -208,6 +215,19 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def longest_chain(idx: torch.Tensor, tile: int, live=None):
+    """(slots, tiles): the most slots on one id, from a host bincount of
+    idx (the chain of atomics on that row's address when each slot adds
+    its own), and the tiles of ``tile`` slots that hold that id (the most
+    atomics a column the sort-and-reduce of K2/K4 issues on it). live:
+    an optional mask of the slots that count."""
+    i = idx.cpu().numpy()
+    pos = np.nonzero(live.cpu().numpy())[0] if live is not None else np.arange(i.size)
+    counts = np.bincount(i[pos])
+    hot = int(counts.argmax())
+    return int(counts[hot]), int(np.unique(pos[i[pos] == hot] // tile).size)
+
+
 def zipf_batches(n: int, seed: int = 0, batch: int = B):
     """The benchmark's id distribution: Criteo-shaped batches whose ids are
     redrawn as Zipf(1.2) ranks, the 13 static fields kept at ids 1..13."""
@@ -249,6 +269,8 @@ def kernel_phase(dev):
     diff = (acc_k - acc_p).abs()
     err2 = float(diff.max())
     check(bool((diff <= 1e-4 * scale + 1e-6).all()), f"accumulate_rows differs: max abs err {err2}")
+    tile = SR._lib().tr_accumulate_rows_tile()
+    accumulate_edges(dev, gen, tile)
 
     # ragged N, all duplicates, bf16
     for name, n2, s2, dup in (("ragged", 1_000_003, 777, False), ("all-duplicates", 100_000, 64, True)):
@@ -290,7 +312,45 @@ def kernel_phase(dev):
         ms, plain, lib = t[name]
         log(f"kernel {name}: max_abs_err {err[name]:.3e}  {ms:.4f} ms  plain {plain:.4f} ms  "
             f"library {lib:.4f} ms  bound {bound[name]:.4f} ms (bytes)")
+    slots, tiles = longest_chain(idx, tile)
+    log(f"kernel accumulate_rows at the DeepFM point: longest chain {slots} slots on one id "
+        f"(the most atomics a column on one address with one per slot); {tiles} of "
+        f"{-(-n // tile)} tiles of {tile} slots hold it")
     return {"t": t, "bound": bound, "bound_by": "bytes", "err": err}
+
+
+def accumulate_edges(dev, gen, tile):
+    """K2 at the edges of its sort-and-reduce: one tile whose every slot
+    is one id; N = T - 1, T, T + 1 at K = 5, 16, 17, 48 (scalar and
+    vector paths); a cotangent with +-0 rows and one NaN row, whose row
+    must come out NaN as with index_add_."""
+    def acc(name, g2, i2, s2):
+        got, want = SR.accumulate_rows(g2, i2, s2), SR.accumulate_rows_plain(g2, i2, s2)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        check(torch.equal(torch.isnan(got), nan), f"accumulate_rows {name}: NaN rows differ")
+        d = (got - want).abs()[~nan]
+        sc = SR.accumulate_rows_plain(g2.abs(), i2, s2)[~nan]
+        check(bool((d <= 1e-4 * sc + 1e-6).all()), f"accumulate_rows {name}: {float(d.max())}")
+        return float(d.max())
+
+    ones = SR.accumulate_rows(torch.ones((tile, 16), device=dev),
+                              torch.full((tile,), 7, dtype=torch.int32, device=dev), 64)
+    check(bool((ones[7] == tile).all()) and float(ones.sum()) == tile * 16,
+          "accumulate_rows: one tile on one id")
+    worst = 0.0
+    for n2 in (tile - 1, tile, tile + 1):
+        for k2 in (5, 16, 17, 48):
+            i2 = torch.randint(0, 300, (n2,), generator=gen, device=dev, dtype=torch.int32)
+            worst = max(worst, acc(f"N={n2} K={k2}", torch.randn((n2, k2), generator=gen, device=dev),
+                                   i2, 300))
+    g2 = torch.randn((4 * tile, 16), generator=gen, device=dev)
+    g2[100:600], g2[600:1100], g2[3] = 0.0, -0.0, float("nan")
+    i2 = torch.randint(0, 500, (4 * tile,), generator=gen, device=dev, dtype=torch.int32)
+    e_nan = acc("+-0 and NaN rows", g2, i2, 500)
+    log(f"kernel check accumulate_rows edges (T={tile}): one tile on one id exact; N = T-1, T, "
+        f"T+1 at K = 5, 16, 17, 48 ok (max abs err {worst:.3e}); +-0 rows and a NaN row ok "
+        f"(NaN row out as NaN, others {e_nan:.3e})")
 
 
 def esmm_batches(n, seed=0, batch=EB, vocab=ESMM_WIDTH["feature_size"],
@@ -401,12 +461,34 @@ def esmm_kernel_phase(dev):
         f"plain {cuda_ms(lambda: SR.expand_rows_plain(table, ids)):.4f} ms  "
         f"library (index_select) {cuda_ms(lambda: torch.index_select(table, 0, ids)):.4f} ms  "
         f"bound {b12:.4f} ms (bytes)")
-    log(f"kernel accumulate_rows at the ESMM point (S={s}, N={n2}, K={k}; covers the TPU's "
-        f"accumulate_rows_packed): max_abs_err {e2:.3e}  "
-        f"{cuda_ms(lambda: SR.accumulate_rows(g2, ids, s)):.4f} ms  "
-        f"plain {cuda_ms(lambda: SR.accumulate_rows_plain(g2, ids, s)):.4f} ms  "
-        f"library (index_add) {cuda_ms(lambda: torch.index_add(zeros, 0, ids, g2)):.4f} ms  "
-        f"bound {b12:.4f} ms (bytes)")
+    k2 = "accumulate_rows (ESMM point)"
+    t2 = (cuda_ms(lambda: SR.accumulate_rows(g2, ids, s)),
+          cuda_ms(lambda: SR.accumulate_rows_plain(g2, ids, s)),
+          cuda_ms(lambda: torch.index_add(zeros, 0, ids, g2)))
+    tile = SR._lib().tr_accumulate_rows_tile()
+    slots, tiles = longest_chain(ids, tile)
+    log(f"kernel {k2} (S={s}, N={n2}, K={k}; covers the TPU's accumulate_rows_packed): "
+        f"max_abs_err {e2:.3e}  {t2[0]:.4f} ms  plain {t2[1]:.4f} ms  library (index_add) "
+        f"{t2[2]:.4f} ms  bound {b12:.4f} ms (bytes); longest chain {slots} slots on one id, "
+        f"held by {tiles} of {-(-n2 // tile)} tiles")
+
+    # K4 at the edges of the sort-and-reduce: one tile on one id, M = T - 1,
+    # T, T + 1 at K = 5, 16, 17, 48
+    tile4 = CP._lib().tr_coo_accumulate_rows_tile()
+    for name, m2, k4, one in [("one tile on one id", tile4, k, True)] + [
+            (f"M={m2} K={k4}", m2, k4, False) for m2 in (tile4 - 1, tile4, tile4 + 1)
+            for k4 in (5, 16, 17, 48)]:
+        i4 = (torch.full((m2,), 3, dtype=torch.int32, device=dev) if one else
+              torch.randint(0, 300, (m2,), generator=gen, device=dev, dtype=torch.int32))
+        d4 = torch.randint(0, 64, (m2,), generator=gen, device=dev, dtype=torch.int32)
+        w4 = torch.where(torch.rand(m2, generator=gen, device=dev) < 0.1, 0.0,
+                         torch.rand(m2, generator=gen, device=dev) + 0.5)
+        p4 = torch.randn((64, k4), generator=gen, device=dev)
+        held(f"coo_accumulate_rows {name}", CP.coo_accumulate_rows(p4, i4, d4, w4, 300),
+             CP.coo_accumulate_rows_plain(p4, i4, d4, w4, 300),
+             CP.coo_accumulate_rows_plain(p4.abs(), i4, d4, w4.abs(), 300))
+    log(f"kernel check coo_accumulate_rows edges (T={tile4}): one tile on one id, M = T-1, T, "
+        "T+1 at K = 5, 16, 17, 48 ok")
     t = {
         "coo_pool_rows": (
             cuda_ms(lambda: CP.coo_pool_rows(table, idx, dest, w, g)),
@@ -430,7 +512,13 @@ def esmm_kernel_phase(dev):
         log(f"kernel {name}: max_abs_err {err[name]:.3e}  {ms:.4f} ms  plain {plain:.4f} ms  "
             f"library ({lib_name[name]}) {lib:.4f} ms  bound {bound:.4f} ms ({bound_by}: "
             f"{nbytes / 1e6:.1f} MB, {2 * m * k / 1e6:.1f} MFLOP)")
-    return {"t": t, "bound": {n: bound for n in t}, "bound_by": bound_by, "err": err}
+    slots, tiles = longest_chain(idx, tile4, live=w != 0)
+    log(f"kernel coo_accumulate_rows: longest chain {slots} live slots on one id, held by "
+        f"{tiles} of {-(-m // tile4)} tiles")
+    bounds = {n: bound for n in t}
+    t[k2], bounds[k2], err[k2] = t2, b12, e2
+    return {"t": t, "bound": bounds, "bound_by": {n: bound_by for n in t} | {k2: "bytes"},
+            "err": err}
 
 
 def din_chain(model, sorted_aux):
@@ -516,26 +604,50 @@ def din_kernel_phase(dev):
             f"{nbytes[name] / 1e6:.1f} MB)")
 
     # K1 and K2 on the COO lookup of the slots without --coo_sorted_bwd
-    # (N = M ids, padding on row 0): where the hot-row atomics show
+    # (N = M ids, padding on row 0): where the hot-row atomics showed
     table = torch.randn((s, 3 * k), generator=gen, device=dev)[:, :k]
     check(torch.equal(SR.expand_rows(table, idx), SR.expand_rows_plain(table, idx)),
           "expand_rows at the DIN point differs from table[idx]")
-    g2 = torch.randn((m, k), generator=gen, device=dev)
-    e2 = held("accumulate_rows at the DIN point", SR.accumulate_rows(g2, idx, s),
-              SR.accumulate_rows_plain(g2, idx, s), SR.accumulate_rows_plain(g2.abs(), idx, s))
     b12 = (m * k * 4 + m * 4 + s * k * 4) / HBM_BYTES_PER_S * 1e3
-    zs2 = torch.zeros((s, k), device=dev)
     log(f"kernel expand_rows at the DIN COO lookup (S={s}, N={m}, K={k}): bit-exact  "
         f"{cuda_ms(lambda: SR.expand_rows(table, idx)):.4f} ms  "
         f"plain {cuda_ms(lambda: SR.expand_rows_plain(table, idx)):.4f} ms  "
         f"library (index_select) {cuda_ms(lambda: torch.index_select(table, 0, idx)):.4f} ms  "
         f"bound {b12:.4f} ms (bytes)")
-    log(f"kernel accumulate_rows at the DIN COO lookup (S={s}, N={m}, K={k}, {m - m_live} "
-        f"padding ids on row 0): max_abs_err {e2:.3e}  "
-        f"{cuda_ms(lambda: SR.accumulate_rows(g2, idx, s)):.4f} ms  "
-        f"plain {cuda_ms(lambda: SR.accumulate_rows_plain(g2, idx, s)):.4f} ms  "
-        f"library (index_add) {cuda_ms(lambda: torch.index_add(zs2, 0, idx, g2)):.4f} ms  "
-        f"bound {b12:.4f} ms (bytes)")
+    # K2 on the COO lookup, and on the shared lookup in the step's own id
+    # layout (the 11 common fields, the 3 scalar ad fields, the bucketed
+    # a_intids block) with a cotangent that is exactly 0 on the a_int
+    # padding slots, as the step's int_mask makes it (models/din.py)
+    bucketed = MhPadBucketer(MH_PAIRS, DIN_WIDTH["mh_bucket"])(dict(raw))
+    a_int_pad = torch.from_numpy(bucketed["a_intids"] <= 0).to(dev)
+    fc = mapped["feat_ids"].shape[1] + 3
+    shared = torch.from_numpy(np.concatenate(
+        [mapped["feat_ids"]] + [mapped[f][:, None] for f in ("a_catids", "a_shopids", "a_brandids")]
+        + [mapped["a_intids"]], axis=1).reshape(-1)).to(dev)
+    g_sh = torch.randn((shared.shape[0] // EB, EB, k), generator=gen, device=dev).transpose(0, 1)
+    g_sh = torch.where(torch.cat([torch.zeros((EB, fc), dtype=torch.bool, device=dev), a_int_pad],
+                                 dim=1)[..., None], 0.0, g_sh).reshape(-1, k).contiguous()
+    points = {"accumulate_rows (DIN COO lookup)": (torch.randn((m, k), generator=gen, device=dev), idx,
+                                                   f"{m - m_live} padding ids on row 0"),
+              "accumulate_rows (DIN shared lookup)": (g_sh, shared,
+                                                      f"{int(a_int_pad.sum())} a_int padding slots, "
+                                                      "cotangent 0")}
+    tile = SR._lib().tr_accumulate_rows_tile()
+    zs2 = torch.zeros((s, k), device=dev)
+    for name, (g2, i2, what) in points.items():
+        n2 = i2.shape[0]
+        err[name] = held(name, SR.accumulate_rows(g2, i2, s), SR.accumulate_rows_plain(g2, i2, s),
+                         SR.accumulate_rows_plain(g2.abs(), i2, s))
+        t[name] = (cuda_ms(lambda: SR.accumulate_rows(g2, i2, s)),
+                   cuda_ms(lambda: SR.accumulate_rows_plain(g2, i2, s)),
+                   cuda_ms(lambda: torch.index_add(zs2, 0, i2, g2)))
+        bound[name] = (n2 * k * 4 + n2 * 4 + s * k * 4) / HBM_BYTES_PER_S * 1e3
+        slots, tiles = longest_chain(i2, tile)
+        ms, plain, lib = t[name]
+        log(f"kernel {name} (S={s}, N={n2}, K={k}, {what}): max_abs_err {err[name]:.3e}  "
+            f"{ms:.4f} ms  plain {plain:.4f} ms  library (index_add) {lib:.4f} ms  bound "
+            f"{bound[name]:.4f} ms (bytes); longest chain {slots} slots on one id, held by "
+            f"{tiles} of {-(-n2 // tile)} tiles")
     return {"t": t, "bound": bound, "bound_by": "bytes", "err": err}
 
 
@@ -655,6 +767,9 @@ def main_path(dev, work):
     check(math.isfinite(res["loss"]) and 0.0 <= res["auc"] <= 1.0, f"main path result {res}")
     for name, c in launches.items():
         check(c > 0, f"{name} was not launched on the main path")
+    check(launches["accumulate_rows"] == res["step"],
+          f"accumulate_rows launched {launches['accumulate_rows']} times in {res['step']} steps, "
+          "expected one a step")
     return launches
 
 
@@ -690,9 +805,13 @@ def esmm_main_path(dev, work):
     launches = {f.__name__: f.launches for f in (SR.expand_rows, SR.accumulate_rows,
                                                 CP.coo_pool_rows, CP.coo_accumulate_rows,
                                                 RS.dma_row_scatter)}
+    launches["accumulate_rows (ESMM point)"] = launches["accumulate_rows"]
     log(f"ESMM main path (--dma_scatter): {res['step']} steps in {wall:.1f} s wall, "
         f"launches {launches}")
     check(res["step"] >= ESMM_STEPS, f"ESMM main path ran {res['step']} steps")
+    for name in ("accumulate_rows", "coo_accumulate_rows"):
+        check(launches[name] == res["step"], f"ESMM: {name} launched {launches[name]} times in "
+                                             f"{res['step']} steps, expected one a step")
     check(launches["dma_row_scatter"] == res["step"],
           f"ESMM: dma_row_scatter launched {launches['dma_row_scatter']} times in {res['step']} "
           "steps, expected one write-back a step")
@@ -798,6 +917,10 @@ def din_main_path(dev, work):
           "DIN --coo_sorted_bwd: expand_rows should also gather the cotangent into sorted order")
     # K5 at n_out = Su: the one launch a step beyond the pool/select pair's
     launches["sorted_segsum (n_out=Su)"] = slaunches["sorted_segsum"] - 2 * ssteps
+    # K2 by lookup: the --coo_sorted_bwd leg runs it only for the shared
+    # lookup; the DIN run, once a step for each lookup
+    launches["accumulate_rows (DIN shared lookup)"] = slaunches["accumulate_rows"]
+    launches["accumulate_rows (DIN COO lookup)"] = launches["accumulate_rows"] - steps
     return launches
 
 
@@ -955,7 +1078,7 @@ def profile_step(label: str, run, trace: str):
     log(f"profile {label}: 10 steps, {wall:.2f} ms wall, device busy {busy / 1e3:.2f} ms "
         f"({100 * busy / 1e3 / wall:.1f}%), {sum(r[2] for r in rows) / 10:.1f} device "
         "operations per step" if rows else "profile: no device time recorded")
-    for us, key, cnt in rows[:15]:
+    for us, key, cnt in rows[:25]:
         log(f"profile:   {us / 10 / 1e3:8.4f} ms/step  x{cnt / 10:<4.1f} {key[:90]}")
     if trace:
         os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
@@ -1170,6 +1293,12 @@ def main() -> int:
     kernels = [
         ("expand_rows", "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164", kp, launches),
         ("accumulate_rows", "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:208", kp, launches),
+        ("accumulate_rows (ESMM point)", "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:289",
+         ekp, elaunches),
+        ("accumulate_rows (DIN COO lookup)", "sparse_rows.cu",
+         "tf_repos_tpu/ops/pallas_sparse.py:289", dkp, dlaunches),
+        ("accumulate_rows (DIN shared lookup)", "sparse_rows.cu",
+         "tf_repos_tpu/ops/pallas_sparse.py:289", dkp, dlaunches),
         ("coo_pool_rows", "coo_pool.cu", "tf_repos_tpu/ops/pallas_sparse.py:463", ekp, elaunches),
         ("coo_accumulate_rows", "coo_pool.cu", "tf_repos_tpu/ops/pallas_sparse.py:514", ekp,
          elaunches),
@@ -1184,11 +1313,13 @@ def main() -> int:
     report = []
     for name, src, replaces, phase, counts in kernels:
         ms, plain, lib = phase["t"][name]
+        by = phase["bound_by"]
         report.append({
             "name": name, "route": "cuda", "source": f"tf_repos_tpu_torch/ops/csrc/{src}",
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": phase["err"][name], "ms": ms, "plain_ms": plain,
-            "bound_ms": phase["bound"][name], "bound_by": phase["bound_by"], "library_ms": lib,
+            "bound_ms": phase["bound"][name], "bound_by": by[name] if isinstance(by, dict) else by,
+            "library_ms": lib,
         })
     log(f"bare sparse step DeepFM {bare['sparse']:.3f} ms = {B / bare['sparse'] * 1e3:.0f} "
         f"examples/s, dense --field_blocks {bare['dense+field_blocks']:.3f} ms = "

@@ -21,10 +21,10 @@ from tf_repos_tpu_torch.ops import sparse_rows as SR
 from tf_repos_tpu_torch.ops.embedding import coo_pool
 
 
-def _triplet(rng, m, s, g, zipf=False, pad=0):
-    """idx, dest, w of m live slots plus ``pad`` padding slots (idx = dest
-    = 0, w = 0), as the packer emits them."""
-    idx = (np.minimum(rng.zipf(1.3, size=(m,)) - 1, s - 1) if zipf
+def _triplet(rng, m, s, g, zipf=False, pad=0, a=1.3):
+    """idx, dest, w of m live slots (Zipf(a) idx if zipf) plus ``pad``
+    padding slots (idx = dest = 0, w = 0), as the packer emits them."""
+    idx = (np.minimum(rng.zipf(a, size=(m,)) - 1, s - 1) if zipf
            else rng.integers(0, s, size=(m,)))
     dest = rng.integers(0, g, size=(m,))
     w = rng.standard_normal((m,))
@@ -56,13 +56,18 @@ def test_pool_plain_matches_pallas(m, s, g, k, pad):
 
 
 @pytest.mark.parametrize("jax_kernel", ["coo_accumulate_rows", "coo_accumulate_rows_packed"])
-@pytest.mark.parametrize("m,s,g,k,pad", [(2048, 128, 60, 8, 0), (2048, 128, 60, 16, 700)])
-def test_accumulate_plain_matches_pallas(jax_kernel, m, s, g, k, pad):
+@pytest.mark.parametrize("m,s,g,k,pad,a,zero_rows", [
+    (2048, 128, 60, 8, 0, 1.3, 0), (2048, 128, 60, 16, 700, 1.3, 0),
+    (3000, 500, 80, 16, 0, 1.2, 0),  # the benchmark's Zipf(1.2) skew
+    (2000, 200, 64, 16, 600, 1.2, 16),  # a zero-cotangent block of dp rows
+])
+def test_accumulate_plain_matches_pallas(jax_kernel, m, s, g, k, pad, a, zero_rows):
     # heavy idx duplication, as in tests/test_mh_coo.py:69-83; the
     # lane-packed TPU variant computes the same function
     rng = np.random.default_rng(1)
     dp = rng.standard_normal((g, k)).astype(np.float32)
-    idx, dest, w = _triplet(rng, m, s, g, zipf=True, pad=pad)
+    dp[:zero_rows] = 0.0
+    idx, dest, w = _triplet(rng, m, s, g, zipf=True, pad=pad, a=a)
     want = np.asarray(getattr(PS, jax_kernel)(jnp.asarray(dp), jnp.asarray(idx), jnp.asarray(dest),
                                               jnp.asarray(w), s, chunk=256, unroll=8))
     got = CP.coo_accumulate_rows(*_t(dp, idx, dest, w), s).numpy()

@@ -50,11 +50,25 @@ def test_expand_bit_exact(dev, n, s, k, dtype):
     assert torch.equal(out, table[idx])
 
 
-@pytest.mark.parametrize("n,s,k", [(425_984, 28_672, 17), (100_000, 64, 17), (513, 40, 5)])
+@pytest.mark.parametrize("n,s,k,pad,zero_pad", [
+    (425_984, 28_672, 17, 0, False),
+    (100_000, 64, 17, 0, False),
+    (513, 40, 5, 0, False),
+    # the DIN COO lookup: 1,310,720 slots, 141,716 of them padding on row 0
+    (1_169_004, 114_688, 16, 141_716, False),
+    (300_000, 20_000, 16, 100_000, True),  # a zero-cotangent padding block
+    (2_047, 500, 16, 0, False),  # N = T - 1, T, T + 1 (T = 2,048 slots a tile)
+    (2_048, 500, 17, 0, False),
+    (2_049, 500, 16, 0, False),
+    (50_000, 3_000, 48, 0, False),
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_accumulate_matches_plain(dev, n, s, k, dtype):
-    g = torch.randn((n, k), device=dev).to(dtype)
-    idx = _zipf(n, s).to(dev)
+def test_accumulate_matches_plain(dev, n, s, k, pad, zero_pad, dtype):
+    g = torch.randn((n + pad, k), device=dev)
+    if zero_pad:
+        g[n:] = 0.0
+    g = g.to(dtype)
+    idx = torch.cat([_zipf(n, s), torch.zeros(pad, dtype=torch.int32)]).to(dev)
     before = SR.accumulate_rows.launches
     got = SR.accumulate_rows(g, idx, s)
     torch.cuda.synchronize()
@@ -62,6 +76,34 @@ def test_accumulate_matches_plain(dev, n, s, k, dtype):
     want = SR.accumulate_rows_plain(g, idx, s)
     scale = SR.accumulate_rows_plain(g.abs(), idx, s)
     assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+def test_accumulate_tile_sizes(dev):
+    # the boundary cases above and below are written for these tiles
+    assert SR._lib().tr_accumulate_rows_tile() == 2_048
+    assert CP._lib().tr_coo_accumulate_rows_tile() == 2_560
+
+
+def test_accumulate_passes_nan_through(dev):
+    """A NaN cotangent row reaches its output row, as with index_add_;
+    +-0 rows add nothing, and one tile's slots on one id sum exactly."""
+    n, s, k = 5_000, 64, 16
+    g = torch.randn((n, k), device=dev)
+    idx = torch.randint(0, s, (n,), dtype=torch.int32, device=dev)
+    g[10:400] = 0.0
+    g[400:800] = -0.0
+    g[7] = float("nan")
+    got = SR.accumulate_rows(g, idx, s)
+    want = SR.accumulate_rows_plain(g, idx, s)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[int(idx[7])]).all())
+    ok = ~torch.isnan(want)
+    scale = SR.accumulate_rows_plain(g.abs(), idx, s)
+    assert bool(((got - want).abs()[ok] <= 1e-4 * scale[ok] + 1e-6).all())
+    ones = SR.accumulate_rows(torch.ones((2_048, k), device=dev),
+                              torch.full((2_048,), 3, dtype=torch.int32, device=dev), s)
+    assert float(ones[3, 0]) == 2_048.0 and float(ones.sum()) == 2_048.0 * k
 
 
 def test_lookup_grad_on_card_matches_cpu(dev):
@@ -121,14 +163,22 @@ def test_coo_pool_matches_plain(dev, m, s, g, k, pad, runs, dtype):
     assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
 
 
-@pytest.mark.parametrize("m,s,g,k,pad,runs", [
-    (655_360, 114_688, 20_480, 16, 0, True),
-    (200_000, 5_000, 4_096, 16, 0, False),
-    (30_000, 2_000, 640, 16, 90_000, True),
-    (513, 40, 7, 5, 3, True),
+@pytest.mark.parametrize("m,s,g,k,pad,runs,zero_rows", [
+    (655_360, 114_688, 20_480, 16, 0, True, 0),
+    (200_000, 5_000, 4_096, 16, 0, False, 0),
+    (30_000, 2_000, 640, 16, 90_000, True, 0),
+    (513, 40, 7, 5, 3, True, 0),
+    # the DIN COO point's slot count: 141,716 padding slots (w = 0)
+    (1_169_004, 114_688, 16_384, 16, 141_716, True, 0),
+    (200_000, 5_000, 4_096, 16, 0, True, 1_024),  # a zero-cotangent block of dp rows
+    (2_559, 300, 64, 16, 0, True, 0),  # M = T - 1, T, T + 1 (T = 2,560)
+    (2_560, 300, 64, 17, 0, True, 0),
+    (2_561, 300, 64, 16, 0, False, 0),
+    (50_000, 3_000, 512, 48, 0, True, 0),
 ])
-def test_coo_accumulate_matches_plain(dev, m, s, g, k, pad, runs):
+def test_coo_accumulate_matches_plain(dev, m, s, g, k, pad, runs, zero_rows):
     dp = torch.randn((g, k), device=dev)
+    dp[:zero_rows] = 0.0
     idx, dest, w = (t.to(dev) for t in _coo(m, s, g, pad, seed=1, runs=runs))
     before = CP.coo_accumulate_rows.launches
     got = CP.coo_accumulate_rows(dp, idx, dest, w, s)

@@ -46,11 +46,15 @@ def test_expand_plain_matches_pallas(n, s, k, dtype):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("n,s,k", [(1000, 64, 17), (4096, 512, 16), (600, 33, 8)])
-def test_accumulate_plain_matches_pallas(n, s, k):
+@pytest.mark.parametrize("n,s,k,a,pad", [
+    (1000, 64, 17, 1.3, 0), (4096, 512, 16, 1.3, 0), (600, 33, 8, 1.3, 0),
+    (3000, 700, 17, 1.2, 0),  # the benchmark's Zipf(1.2) skew
+    (2000, 300, 16, 1.2, 1500),  # a zero-cotangent padding block on row 0
+])
+def test_accumulate_plain_matches_pallas(n, s, k, a, pad):
     rng = np.random.default_rng(1)
-    g = rng.standard_normal((n, k)).astype(np.float32)
-    idx = _zipf_idx(rng, n, s)  # heavy duplication
+    g = np.concatenate([rng.standard_normal((n, k)), np.zeros((pad, k))]).astype(np.float32)
+    idx = np.concatenate([_zipf_idx(rng, n, s, a), np.zeros(pad, np.int32)])  # heavy duplication
     want = np.asarray(PS.accumulate_rows(jnp.asarray(g), jnp.asarray(idx), s, chunk=256, unroll=8))
     got = SR.accumulate_rows(torch.from_numpy(g), torch.from_numpy(idx), s).numpy()
     assert got.dtype == np.float32 and got.shape == (s, k)

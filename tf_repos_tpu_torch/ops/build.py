@@ -4,8 +4,9 @@ Each ``ops/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``tf_repos_tpu_torch/_build/lib<name>-<hash>.so``, a shared library with a
 plain C interface, and loaded with ctypes. The build happens at first
 use (or all at once through ``build_all``, one nvcc per source started
-together); the hash of the source names the file, so an edited source is
-rebuilt. Nothing here runs at import time."""
+together); the hash of the source and of the headers in ``csrc/`` names
+the file, so an edited source or header is rebuilt. Nothing here runs at
+import time."""
 
 from __future__ import annotations
 
@@ -71,9 +72,14 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by the hash of its source and of every
+    header in csrc/ (a source may include any of them)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start(name: str):

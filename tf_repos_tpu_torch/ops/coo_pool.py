@@ -51,8 +51,10 @@ def _lib() -> ctypes.CDLL:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.tr_coo_pool_rows.argtypes = [p, ll, p, p, p, ll, i, i, p, p]
     lib.tr_coo_pool_rows.restype = i
-    lib.tr_coo_accumulate_rows.argtypes = [p, p, p, p, ll, i, p, p]
+    lib.tr_coo_accumulate_rows.argtypes = [p, p, p, p, ll, i, ll, p, p]
     lib.tr_coo_accumulate_rows.restype = i
+    lib.tr_coo_accumulate_rows_tile.argtypes = []
+    lib.tr_coo_accumulate_rows_tile.restype = i
     return lib
 
 
@@ -108,7 +110,9 @@ def coo_accumulate_rows(dp: torch.Tensor, idx: torch.Tensor, dest: torch.Tensor,
                         w: torch.Tensor, s: int) -> torch.Tensor:
     """d[r,:] = sum over {i: idx[i] == r} of w[i] * dp[dest[i],:], f32
     [s,K]: the transpose of coo_pool_rows with respect to the table. dp
-    f32 [n_out,K] contiguous; idx, dest int32 [M], w f32 [M]."""
+    f32 [n_out,K] contiguous; idx, dest int32 [M], w f32 [M]. The kernel
+    sums each tile's runs of equal idx, then adds them with atomics in no
+    fixed order (csrc/sort_reduce.cuh)."""
     if dp.device.type == "cpu":
         return coo_accumulate_rows_plain(dp, idx, dest, w, s)
     if dp.device.type != "cuda":
@@ -122,7 +126,7 @@ def coo_accumulate_rows(dp: torch.Tensor, idx: torch.Tensor, dest: torch.Tensor,
     with torch.cuda.device(dp.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().tr_coo_accumulate_rows(
-            dp.data_ptr(), idx.data_ptr(), dest.data_ptr(), w.data_ptr(), m, k,
+            dp.data_ptr(), idx.data_ptr(), dest.data_ptr(), w.data_ptr(), m, k, s,
             out.data_ptr(), stream,
         )
     build.check_rc("coo_accumulate_rows", rc)

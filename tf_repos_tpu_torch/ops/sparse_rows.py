@@ -50,8 +50,10 @@ def _lib() -> ctypes.CDLL:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.tr_expand_rows.argtypes = [p, ll, p, ll, i, i, p, p]
     lib.tr_expand_rows.restype = i
-    lib.tr_accumulate_rows.argtypes = [p, p, ll, i, i, p, p]
+    lib.tr_accumulate_rows.argtypes = [p, p, ll, i, ll, i, p, p]
     lib.tr_accumulate_rows.restype = i
+    lib.tr_accumulate_rows_tile.argtypes = []
+    lib.tr_accumulate_rows_tile.restype = i
     return lib
 
 
@@ -86,7 +88,8 @@ def expand_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def accumulate_rows(g: torch.Tensor, idx: torch.Tensor, s: int) -> torch.Tensor:
     """out[r,:] = sum of g[i,:] over {i: idx[i] == r}, f32 [s,K]. g [N,K]
     f32 or bf16, contiguous; idx int32 [N]; duplicates allowed. The
-    kernel adds with atomics in no fixed order."""
+    kernel sums each tile's runs of equal idx, then adds them with
+    atomics in no fixed order (csrc/sort_reduce.cuh)."""
     if g.device.type == "cpu":
         return accumulate_rows_plain(g, idx, s)
     if g.device.type != "cuda":
@@ -104,7 +107,7 @@ def accumulate_rows(g: torch.Tensor, idx: torch.Tensor, s: int) -> torch.Tensor:
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().tr_accumulate_rows(
-            g.data_ptr(), idx.data_ptr(), n, k, int(g.dtype == torch.bfloat16),
+            g.data_ptr(), idx.data_ptr(), n, k, s, int(g.dtype == torch.bfloat16),
             out.data_ptr(), stream,
         )
     build.check_rc("accumulate_rows", rc)

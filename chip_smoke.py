@@ -45,7 +45,12 @@ result line):
         n_out = Su (the idx-sorted runs, where the TPU ran
         sorted_segsum_packed), in f32 and bf16, plus an all-padding
         stream, each within 1e-4 * sum_i |v_i| + 1e-6 per element of
-        its plain version (atomics: run-to-run sum order);
+        its plain version (atomics: run-to-run sum order); beside each
+        sorted_segsum time, the reductions it sends to device memory and
+        the longest chain on one address, under a scalar design's rule
+        (one atomic per run and column) and this one's
+        (segsum_reductions), and its time on all-zero values, where it
+        sends none;
         sorted_expand bit-exact in both dtypes; K1 and K2 on the COO
         lookup's ids, and K2 on the shared lookup's ids (the step's own
         layout, a cotangent of exactly 0 on the a_int padding slots);
@@ -57,7 +62,10 @@ result line):
      e. K8 at the DeepFM point (B=16384, 39 fields in 13 one-row and 26
         large blocks, W=17) in bf16 and f32 mode, and with out-of-block
         and -1 ids: within 1e-4 * sum_i |g_i| + 1e-6 per element (atomics:
-        run-to-run sum order), timed against index_add_;
+        run-to-run sum order), timed against index_add_, with the
+        reductions it sends to device memory and the flush chain on the
+        one-row fields (field_block_reductions), and its time with every
+        id -1, where it adds nothing;
   4. the main paths: ``tf_repos_tpu_torch.main`` --task_type=train at
      full width, DeepFM for >= 20 steps on synthetic Zipf libsvm data,
      ESMM (the whole cell esmm_coo_dma_combine: K7 once a step) for >= 10
@@ -532,30 +540,89 @@ def din_chain(model, sorted_aux):
     return lambda b: mapper(packer(bucketer(dict(b))))
 
 
-def din_kernel_phase(dev):
+def din_point(dev):
+    """One DIN batch at the published point through the port's host chain
+    (bucketer, packer with both aux streams, mapper), and K5's inputs on
+    the card: at n_out = G the pool's values, zero on the padding slots;
+    at n_out = Su the cotangent gathered into idx-sorted order and masked
+    past the live count, as the --coo_sorted_bwd backward does."""
     model = create_model(Config(**DIN_WIDTH))
-    vocab = DIN_WIDTH["feature_size"]
     raw = esmm_batches(1)[0]
     mapped = din_chain(model, sorted_aux=True)(raw)
     cdest, idx, perm, cidx, srows = (torch.from_numpy(mapped[key].reshape(-1)).to(dev) for key in
                                      (MHC_CDEST, MHC_IDX, MHC_PERM, MHC_CIDX, MHC_SROWS))
     m, m_live = idx.shape[0], int(mapped[MHC_CNT].sum())
+    k = DIN_WIDTH["embedding_size"]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    live = (torch.arange(m, device=dev) < m_live)[:, None]
+    vals = torch.where(live, torch.randn((m, k), generator=gen, device=dev), 0.0)
+    sct = torch.where(live, torch.randn((m, k), generator=gen, device=dev).index_select(0, perm), 0.0)
+    return dict(model=model, raw=raw, mapped=mapped, cdest=cdest, idx=idx, perm=perm, cidx=cidx,
+                srows=srows, m=m, m_live=m_live, k=k, gen=gen, vals=vals, sct=sct,
+                g=EB * len(model.mh_coo_groups()), su=srows.shape[0])
+
+
+K5_STRIP = 32  # slots one K5 thread sums (csrc/sorted_seg.cu STRIP)
+
+
+def segsum_reductions(vals, cdest):
+    """What one K5 launch sends to device memory, counted on the host from
+    its inputs: a run is the slots of one strip between changes of cdest.
+    Returns (scalar, chain_scalar, vector, chain_vector): a scalar
+    design's atomics (32-slot strips, one per run and column, zero sums
+    included) and the most of them on one address; this design's
+    reductions and the most of them on one address. In this design a
+    block sums 256 // groups strips of K5_STRIP slots (groups: K's
+    column groups of four); a run on the block's first or last segment
+    adds into shared memory, and the block adds each such segment's group
+    once; any other run adds its group itself (one float4 at K % 4 == 0);
+    nothing is added for a group whose values are all 0."""
+    c = cdest.cpu().numpy().astype(np.int64)
+    a = vals.float().abs().cpu().numpy()
+    m, k = a.shape
+    groups = -(-k // 4)
+
+    def runs(n):
+        starts = np.flatnonzero((np.arange(m) % n == 0)
+                                | np.concatenate([[True], c[1:] != c[:-1]]))
+        return starts, c[starts]
+
+    starts, dest = runs(32)
+    scalar, chain_scalar = starts.size * k, int(np.bincount(dest).max())
+    starts, dest = runs(K5_STRIP)
+    nz = np.add.reduceat(np.pad(a, ((0, 0), (0, 4 * groups - k))), starts, axis=0)
+    nz = nz.reshape(-1, groups, 4).sum(axis=2)  # [runs, groups]: 0 iff all values 0
+    span = K5_STRIP * max(1, 256 // groups)
+    blk = starts // span
+    first = c[blk * span]
+    last = c[np.minimum(m, (blk + 1) * span) - 1]
+    edge = (dest == first) | (dest == last)
+    # the edge runs, summed per (block, first or last segment)
+    key = blk[edge] * 2 + (dest[edge] != first[edge])
+    ukey, inv = np.unique(key, return_inverse=True)
+    edge_nz = np.zeros((ukey.size, groups))
+    np.add.at(edge_nz, inv, nz[edge])
+    edge_dest = np.where(ukey % 2 == 0, c[(ukey // 2) * span],
+                         c[np.minimum(m, (ukey // 2 + 1) * span) - 1])
+    adds = np.concatenate([nz[~edge] > 0, edge_nz > 0])
+    dests = np.concatenate([dest[~edge], edge_dest])
+    hits = np.bincount((dests[:, None] * groups + np.arange(groups)).ravel(), weights=adds.ravel())
+    return scalar, chain_scalar, int(adds.sum()), int(hits.max())
+
+
+def din_kernel_phase(dev):
+    pt = din_point(dev)
+    model, raw, mapped, gen = pt["model"], pt["raw"], pt["mapped"], pt["gen"]
+    cdest, idx, cidx, vals, sct = pt["cdest"], pt["idx"], pt["cidx"], pt["vals"], pt["sct"]
+    m, m_live, k, g, su = pt["m"], pt["m_live"], pt["k"], pt["g"], pt["su"]
+    vocab = DIN_WIDTH["feature_size"]
     s = int(mapped["__uids_emb"].shape[0])
     uniq = int((mapped["__uids_emb"] < vocab).sum())
-    su, su_live = srows.shape[0], int(mapped[MHC_CIDX][0, m_live - 1]) + 1
-    k = DIN_WIDTH["embedding_size"]
-    g = EB * len(model.mh_coo_groups())
+    su_live = int(mapped[MHC_CIDX][0, m_live - 1]) + 1
     log(f"DIN host shapes: {m_live} live COO slots over {len(model.mh_coo_groups())} groups, "
         f"no combine (COO bucket M={m}); {int((mapped[MHC_CNT] > 0).sum())} non-empty bags of "
         f"G={g}; {uniq} unique ids (uids bucket S={s}); {su_live} idx-sorted runs (bucket "
         f"Su={su}); a_int bucketed width {mapped['a_intids'].shape[1]}; K={k}")
-    gen = torch.Generator(device=dev).manual_seed(4)
-    live = (torch.arange(m, device=dev) < m_live)[:, None]
-    # K5 at n_out = G: the pool's values are zero on the padding slots
-    vals = torch.where(live, torch.randn((m, k), generator=gen, device=dev), 0.0)
-    # K5 at n_out = Su: the cotangent gathered into idx-sorted order and
-    # masked past the live count, as the --coo_sorted_bwd backward does
-    sct = torch.where(live, torch.randn((m, k), generator=gen, device=dev).index_select(0, perm), 0.0)
     src = torch.randn((g, k), generator=gen, device=dev)
 
     def seg_err(name, v, c, n_out):
@@ -597,11 +664,23 @@ def din_kernel_phase(dev):
     bound = {n: max(b / HBM_BYTES_PER_S, adds[n] / F32_FLOPS) * 1e3 for n, b in nbytes.items()}
     lib_name = {"sorted_segsum": "index_add", "sorted_segsum (n_out=Su)": "index_add",
                 "sorted_expand": "index_select"}
+    red = {"sorted_segsum": segsum_reductions(vals, cdest),
+           "sorted_segsum (n_out=Su)": segsum_reductions(sct, cidx)}
+    # the same launches with no reduction sent: every sum is exactly 0
+    zv, zsct = torch.zeros_like(vals), torch.zeros_like(sct)
+    bare = {"sorted_segsum": cuda_ms(lambda: SG.sorted_segsum(zv, cdest, g)),
+            "sorted_segsum (n_out=Su)": cuda_ms(lambda: SG.sorted_segsum(zsct, cidx, su))}
     for name in t:
         ms, plain, lib = t[name]
         log(f"kernel {name}: max_abs_err {err[name]:.3e}  {ms:.4f} ms  plain {plain:.4f} ms  "
             f"library ({lib_name[name]}) {lib:.4f} ms  bound {bound[name]:.4f} ms (bytes: "
             f"{nbytes[name] / 1e6:.1f} MB)")
+        if name in red:
+            r = red[name]
+            log(f"kernel {name} reductions into device memory: scalar design {r[0]} atomics, "
+                f"longest chain {r[1]} on one address; this design (strip {K5_STRIP}) {r[2]} "
+                f"vector reductions, longest chain {r[3]} (sums of exactly 0 skipped); on "
+                f"all-zero values, with no reduction sent, {bare[name]:.4f} ms")
 
     # K1 and K2 on the COO lookup of the slots without --coo_sorted_bwd
     # (N = M ids, padding on row 0): where the hot-row atomics showed
@@ -693,16 +772,59 @@ def scatter_kernel_phase(dev):
             "err": {"dma_row_scatter": 0.0}}
 
 
-def field_block_kernel_phase(dev):
-    """K8 at the DeepFM point: one batch of the --field_blocks leg's data
-    (per-field blocks), a random f32 cotangent [B, 39, 17], in bf16 (the
-    harness's mode) and f32 mode, plus a case with out-of-block ids and
-    -1 padding rows."""
+def field_block_point(dev):
+    """K8's inputs at the DeepFM point: one batch of the --field_blocks
+    leg's data (per-field blocks) and a random f32 cotangent [B, 39, 17]."""
     vocab, w = WIDTH["feature_size"], 1 + WIDTH["embedding_size"]
     ids_np = synthetic_criteo_batch(np.random.default_rng(6), B, vocab)["feat_ids"]
-    ids = torch.from_numpy(ids_np).to(dev)
     gen = torch.Generator(device=dev).manual_seed(6)
     g = torch.randn((B, len(FB_OFFSETS), w), generator=gen, device=dev)
+    return ids_np, torch.from_numpy(ids_np).to(dev), g
+
+
+def span_ops(a: int, n: int) -> int:
+    """Reductions row_ops.cuh's emit_span issues for n floats starting a
+    floats past a 16-byte boundary: a single float and a pair to the
+    boundary, float4s, then a pair and a single float."""
+    ops, j = 0, 0
+    if a % 2 and n:
+        ops, j = 1, 1
+    if (a + j) % 4 == 2 and n - j >= 2:
+        ops, j = ops + 1, j + 2
+    ops, j = ops + (n - j) // 4, j + (n - j) // 4 * 4
+    return ops + (j + 2 <= n) + ((n - j) % 2)
+
+
+def field_block_reductions(ids_np, w):
+    """What one K8 launch sends to device memory at the DeepFM point,
+    counted on the host from the ids: (scalar, vector, hot_pairs, flush,
+    chain). The live pairs of fields without a shared-memory accumulator
+    add their rows straight into device memory: a scalar design with one
+    atomic an element, this one with emit_span's 5-6 reductions a 17-float
+    row. The pairs of the accumulated (one-row) fields add in shared
+    memory; every block then adds its accumulator rows once (emit_span,
+    32 floats a thread), so each such word takes a chain of one reduction
+    per block."""
+    table, _ = FB.field_plan(FB_OFFSETS, FB_SIZES, w)
+    nf = len(FB_OFFSETS)
+    off, size, base = (np.array(table[i * nf:(i + 1) * nf]) for i in range(3))
+    rel = ids_np - off
+    live = (rel >= 0) & (rel < size) & (ids_np < WIDTH["feature_size"])
+    cold_ids = ids_np[live & (base < 0)].astype(np.int64)
+    ops = np.array([span_ops(a, w) for a in range(4)])
+    blocks = -(-ids_np.size // FB.PAIRS)
+    flush = sum(span_ops((o * w + j) % 4, min(32, s * w - j))
+                for o, s in zip(off[base >= 0], size[base >= 0]) for j in range(0, s * w, 32))
+    return (int(cold_ids.size * w), int(ops[cold_ids * w % 4].sum()),
+            int((live & (base >= 0)).sum()), blocks * int(flush), blocks)
+
+
+def field_block_kernel_phase(dev):
+    """K8 at the DeepFM point (field_block_point), in bf16 (the harness's
+    mode) and f32 mode, plus a case with out-of-block ids and -1 padding
+    rows."""
+    vocab, w = WIDTH["feature_size"], 1 + WIDTH["embedding_size"]
+    ids_np, ids, g = field_block_point(dev)
 
     def err(name, i, use_bf16):
         args = (vocab, FB_OFFSETS, FB_SIZES, use_bf16)
@@ -735,6 +857,15 @@ def field_block_kernel_phase(dev):
         f"blocks + 26 of {FB_BLOCK}; bf16 mode): max_abs_err {e['bf16']:.3e}  {t[0]:.4f} ms  "
         f"plain {t[1]:.4f} ms  library (index_add_) {t[2]:.4f} ms  bound {bound:.4f} ms (bytes: "
         f"{nbytes / 1e6:.1f} MB)")
+    scalar, vector, hot, flush, chain = field_block_reductions(ids_np, w)
+    # the same launch with every pair dropped: g streams through, nothing is added
+    dropped = torch.full_like(ids, -1)
+    bare = cuda_ms(lambda: FB.field_block_scatter(dropped, g, *args))
+    log(f"kernel field_block_scatter reductions into device memory: scalar design {scalar} "
+        f"atomics, this design {vector} vector reductions (emit_span); {hot} pairs of the "
+        f"accumulated one-row fields add in shared memory, then {flush} flush reductions, a "
+        f"chain of {chain} (one a block, {FB.PAIRS} pairs a block) on each accumulated word; "
+        f"with every id -1, so that nothing is added, {bare:.4f} ms")
     return {"t": {"field_block_scatter": t}, "bound": {"field_block_scatter": bound},
             "bound_by": "bytes", "err": {"field_block_scatter": e["bf16"]}}
 

@@ -227,27 +227,58 @@ def _sorted_stream(m_live, pad, n_out, seed=0, p=0.0125):
     return torch.from_numpy(np.concatenate([live, np.zeros(pad)]).astype(np.int32))
 
 
-@pytest.mark.parametrize("m_live,pad,n_out,p", [
-    (1_170_000, 140_720, 16_384, 0.0125),  # DIN's published point, n_out = G
-    (1_170_000, 140_720, 100_000, 0.085),  # the --coo_sorted_bwd runs, n_out = Su
-    (100_003, 0, 777, 0.01),  # ragged M, no padding
-    (0, 4096, 64, 0.01),  # an all-padding stream
-    (37, 5, 9, 0.3),
+def _segsum_stream(kind, m_live, pad, n_out, p):
+    """cdest for the K5 card cases: the packer's stream (sorted live prefix,
+    then ``pad`` slots of cdest 0), one segment over the whole stream, runs
+    whose lengths straddle the strip (32 slots) and the block (64 strips,
+    2,048 slots at K = 16) edges, or an unsorted random cdest."""
+    rng = np.random.default_rng(0)
+    if kind == "one":
+        live = np.full(m_live, n_out - 1)
+    elif kind == "edges":
+        lens = np.tile([1, 7, 31, 32, 33, 63, 64, 65, 2_047, 2_048, 2_049, 4_095, 6_000], 8)
+        live = np.minimum(np.repeat(np.arange(lens.size), lens), n_out - 1)[:m_live]
+    elif kind == "random":
+        live = rng.integers(0, n_out, size=m_live)
+    else:
+        return _sorted_stream(m_live, pad, n_out, p=p)
+    return torch.from_numpy(np.concatenate([live, np.zeros(pad)]).astype(np.int32))
+
+
+@pytest.mark.parametrize("kind,m_live,pad,n_out,p,k", [
+    ("sorted", 1_170_000, 140_720, 16_384, 0.0125, 16),  # DIN's published point, n_out = G
+    ("sorted", 1_170_000, 140_720, 100_000, 0.085, 16),  # the --coo_sorted_bwd runs, n_out = Su
+    ("sorted", 100_003, 0, 777, 0.01, 16),  # ragged M, no padding
+    ("sorted", 0, 4096, 64, 0.01, 16),  # an all-padding stream
+    ("sorted", 37, 5, 9, 0.3, 16),
+    ("sorted", 100_003, 3_000, 777, 0.01, 5),  # K = 5, 17: scalar loads, float2/float reductions
+    ("sorted", 100_003, 3_000, 777, 0.01, 17),
+    ("one", 100_003, 0, 9, 0.0, 16),  # one segment over the whole stream
+    ("one", 100_003, 0, 9, 0.0, 17),
+    ("edges", 106_000, 1_000, 200, 0.0, 16),  # runs across strip and block edges
+    ("edges", 106_000, 1_000, 200, 0.0, 5),
+    ("random", 200_000, 0, 5_000, 0.0, 16),  # unsorted: only more runs
+    ("random", 200_000, 0, 5_000, 0.0, 17),
+    ("nan", 100_003, 3_000, 777, 0.01, 16),  # a NaN row reaches its output row
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_sorted_segsum_matches_plain(dev, m_live, pad, n_out, p, dtype):
-    cdest = _sorted_stream(m_live, pad, n_out, p=p).to(dev)
-    vals = torch.randn((m_live + pad, 16), device=dev)
+def test_sorted_segsum_matches_plain(dev, kind, m_live, pad, n_out, p, k, dtype):
+    cdest = _segsum_stream(kind, m_live, pad, n_out, p).to(dev)
+    vals = torch.randn((m_live + pad, k), device=dev)
     vals[m_live:] = 0.0
+    if kind == "nan":
+        vals[5_000] = float("nan")
     vals = vals.to(dtype)
     before = SG.sorted_segsum.launches
     got = SG.sorted_segsum(vals, cdest, n_out)
     torch.cuda.synchronize()
     assert SG.sorted_segsum.launches == before + 1
-    assert got.dtype == torch.float32 and got.shape == (n_out, 16)
+    assert got.dtype == torch.float32 and got.shape == (n_out, k)
     want = SG.sorted_segsum_plain(vals, cdest, n_out)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and bool(nan.any()) == (kind == "nan")
     scale = SG.sorted_segsum_plain(vals.abs(), cdest, n_out)
-    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+    assert bool(((got - want).abs()[~nan] <= 1e-4 * scale[~nan] + 1e-6).all())
 
 
 @pytest.mark.parametrize("m,n_src,k", [(1_310_720, 16_384, 16), (100_003, 777, 5), (37, 9, 16)])
@@ -393,28 +424,48 @@ def _blocks():
     return offsets, (1,) * 13 + (4521,) * 26, 117_581
 
 
-@pytest.mark.parametrize("b,case", [(16_384, "deepfm"), (1_000, "masked"), (37, "overlap")])
-@pytest.mark.parametrize("use_bf16", [True, False])
-def test_field_block_scatter_matches_plain(dev, b, case, use_bf16):
-    rng = np.random.default_rng(5)
+def _field_block_case(case, b, w, rng):
+    """(ids [b, F], g [b, F, w], vocab, offsets, sizes) for the K8 card
+    cases, on the CPU."""
     if case == "overlap":
         offsets, sizes, vocab = (0, 20, 30, 30, 5), (40, 30, 10, 25, 1), 64
+    elif case == "align":  # three overlapping whole-vocab fields: rows at every alignment
+        offsets, sizes, vocab = (0, 0, 0), (1_000,) * 3, 1_000
+    elif case == "onerow":  # row 7 is a one-row field hit by every batch row
+        offsets, sizes, vocab = (0, 7), (5_000, 1), 5_000
     else:
         offsets, sizes, vocab = _blocks()
     ids = np.stack([rng.integers(o, o + s, size=b) for o, s in zip(offsets, sizes)], axis=1)
     if case == "masked":  # out-of-block ids and -1 padding
         ids[: b // 2, 13:] = rng.integers(0, vocab, size=(b // 2, 26))
         ids[-50:] = -1
-    ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
-    g = torch.randn((b, len(offsets), 17), device=dev)
+    g = torch.randn((b, len(offsets), w))
+    if case == "nan":  # in a large block and in a one-row field
+        g[3, 20, 5] = float("nan")
+        g[6, 2, 0] = float("nan")
+    return torch.from_numpy(ids.astype(np.int32)), g, vocab, offsets, sizes
+
+
+@pytest.mark.parametrize("b,case,w", [
+    (16_384, "deepfm", 17), (1_000, "masked", 17), (37, "overlap", 17),
+    (4_000, "align", 1), (4_000, "align", 3), (4_000, "align", 5), (4_000, "align", 17),
+    (4_000, "align", 64), (16_384, "onerow", 17), (2_000, "nan", 17),
+    (1_000, "align", 257), (1_000, "align", 1_024),  # warp tiles of 3 and 1 pairs
+])
+@pytest.mark.parametrize("use_bf16", [True, False])
+def test_field_block_scatter_matches_plain(dev, b, case, w, use_bf16):
+    ids, g, vocab, offsets, sizes = _field_block_case(case, b, w, np.random.default_rng(5))
+    ids, g = ids.to(dev), g.to(dev)
     before = FB.field_block_scatter.launches
     got = FB.field_block_scatter(ids, g, vocab, offsets, sizes, use_bf16)
     torch.cuda.synchronize()
     assert FB.field_block_scatter.launches == before + 1
-    assert got.dtype == torch.float32 and got.shape == (vocab, 17)
+    assert got.dtype == torch.float32 and got.shape == (vocab, w)
     want = FB.field_block_scatter_plain(ids, g, vocab, offsets, sizes, use_bf16)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and bool(nan.any()) == (case == "nan")
     scale = FB.field_block_scatter_plain(ids, g.abs(), vocab, offsets, sizes, use_bf16)
-    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+    assert bool(((got - want).abs()[~nan] <= 1e-4 * scale[~nan] + 1e-6).all())
 
 
 def test_field_block_lookup_grad_on_card_matches_cpu(dev):

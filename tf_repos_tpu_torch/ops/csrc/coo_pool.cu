@@ -65,7 +65,7 @@ __device__ __forceinline__ int tile_row(int j, float inv_k) {
   return static_cast<int>((static_cast<float>(j) + 0.5f) * inv_k);
 }
 
-using sort_reduce::to_f32;
+using row_ops::to_f32;
 
 // One tile of K3: out[tgt[i] * k + c] += w[i] * src[src_row[i] * ld + c]
 // with (src, src_row, tgt) = (table, idx, dest). ld is the source row
@@ -132,7 +132,7 @@ struct WeightedRows {
     return Row{static_cast<long long>(__ldg(dest + j)) * k, __ldg(w + j)};
   }
   __device__ __forceinline__ float4 row(const Row& r, int c) const {
-    const float4 x = sort_reduce::load4(dp + r.off + c, k - c, vec);
+    const float4 x = row_ops::load4(dp + r.off + c, k - c, vec);
     return make_float4(r.w * x.x, r.w * x.y, r.w * x.z, r.w * x.w);
   }
 };

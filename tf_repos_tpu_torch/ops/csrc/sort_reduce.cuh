@@ -18,9 +18,9 @@
 //   3. sums each run of equal key with a block-wide segmented scan, four
 //      columns at a time, every slot's row read once (in sorted order);
 //   4. adds each run's four sums into the zeroed output with Hopper's
-//      vector reductions (atomicAdd on a float4 or float2, sm_90): one
-//      float4 where the row is 16-byte aligned (K % 4 == 0), else the
-//      float2 pairs and single floats its alignment allows (K = 17);
+//      vector reductions (row_ops.cuh's emit, sm_90): one float4 where
+//      the row is 16-byte aligned (K % 4 == 0), else the float2 pairs
+//      and single floats its alignment allows (K = 17);
 //   5. skips an atomic whose sums are all exactly 0, which is exact for
 //      finite inputs; a NaN or Inf sum still reaches the output.
 // The longest chain on one address is then the number of tiles that hold
@@ -43,6 +43,8 @@
 
 #include <cub/block/block_radix_sort.cuh>
 #include <cub/block/block_scan.cuh>
+
+#include "row_ops.cuh"
 
 namespace sort_reduce {
 
@@ -76,64 +78,6 @@ struct SegSum {
     return Seg{a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w, a.head};
   }
 };
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Four columns from p; vec: one 16-byte (f32) or 8-byte (bf16) load,
-// else one load per column below cols.
-__device__ __forceinline__ float4 load4(const float* p, int cols, bool vec) {
-  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
-  return make_float4(p[0], cols > 1 ? p[1] : 0.0f, cols > 2 ? p[2] : 0.0f,
-                     cols > 3 ? p[3] : 0.0f);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int cols, bool vec) {
-  if (vec) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  return make_float4(to_f32(p[0]), cols > 1 ? to_f32(p[1]) : 0.0f,
-                     cols > 2 ? to_f32(p[2]) : 0.0f, cols > 3 ? to_f32(p[3]) : 0.0f);
-}
-
-// Add the sums of one run's four columns (cols of them in the row) into
-// dst with the widest reductions its alignment allows: one float4 on a
-// 16-byte boundary, else float2 pairs from an 8-byte boundary and single
-// floats around them. An operation whose sums are all exactly 0 is
-// skipped.
-__device__ __forceinline__ void add_pair(float* p, float a, float b) {
-  if (a != 0.0f || b != 0.0f) atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
-}
-__device__ __forceinline__ void add_one(float* p, float a) {
-  if (a != 0.0f) atomicAdd(p, a);
-}
-__device__ __forceinline__ void emit(float* dst, int cols, float4 v) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(dst);
-  if (cols >= 4 && (addr & 15) == 0) {
-    if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f) {
-      atomicAdd(reinterpret_cast<float4*>(dst), v);
-    }
-  } else if ((addr & 7) == 0) {  // pair, pair
-    if (cols >= 2) add_pair(dst, v.x, v.y); else add_one(dst, v.x);
-    if (cols >= 4) add_pair(dst + 2, v.z, v.w); else if (cols == 3) add_one(dst + 2, v.z);
-  } else {  // one, pair, one
-    add_one(dst, v.x);
-    if (cols >= 3) add_pair(dst + 1, v.y, v.z); else if (cols == 2) add_one(dst + 1, v.y);
-    if (cols >= 4) add_one(dst + 3, v.w);
-  }
-}
 
 // One tile (blockIdx.x) of TILE = THREADS * ITEMS slots of the scatter,
 // ITEMS slots a thread. Src supplies the slots' rows:
@@ -200,7 +144,7 @@ __device__ __forceinline__ void scatter_tile(const Src& src, const int* __restri
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
       x[i] = key[i] < sent ? src.row(at[i], c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      acc = i == 0 || (heads >> i & 1u) ? x[i] : add4(acc, x[i]);
+      acc = i == 0 || (heads >> i & 1u) ? x[i] : row_ops::add4(acc, x[i]);
     }
     // carry: the sums of the run still open where the previous thread
     // ends (undefined for thread 0, whose first slot starts a run)
@@ -209,8 +153,10 @@ __device__ __forceinline__ void scatter_tile(const Src& src, const int* __restri
     float4 run = make_float4(carry.x, carry.y, carry.z, carry.w);
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
-      run = (heads >> i & 1u) ? x[i] : add4(run, x[i]);
-      if (tails >> i & 1u) emit(out + static_cast<long long>(key[i]) * k + c, k - c, run);
+      run = (heads >> i & 1u) ? x[i] : row_ops::add4(run, x[i]);
+      if (tails >> i & 1u) {
+        row_ops::emit(out + static_cast<long long>(key[i]) * k + c, k - c, run);
+      }
     }
     __syncthreads();  // tmp.scan is reused by the next four columns
   }

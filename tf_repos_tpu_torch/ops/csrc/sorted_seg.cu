@@ -14,18 +14,37 @@
 //   sorted_segsum_packed (_sorted_segsum_packed_kernel, the same sum with
 //   a lane-packed accumulator for large n_out). The TPU turned each
 //   512-slot chunk into a one-hot matmul over a window of the output
-//   pinned in VMEM. Here the [n_out, K] output (1 MB at n_out = 16,384,
-//   6.4 MB at n_out = Su ~ 100k) stays in the 50 MB L2, so the kernel is
-//   bound by the bytes of the [M, K] values and the [M] cdest read once.
-//   Design: each thread owns one column of a strip of STRIP consecutive
-//   slots; it keeps a running sum while cdest stays the same and adds it
-//   with one atomicAdd when cdest changes and at the strip's end. The
-//   sort makes runs long (~80 slots per segment at n_out = G), so the
-//   atomics drop from M*K to about (M / STRIP + segments) * K and no
-//   hot-row pile-up remains. Neighbouring threads take neighbouring
-//   columns of one strip, so a warp reads whole rows. Padding slots add
-//   their zeros into row 0. No TF32 and no tensor cores: the sum is a
-//   plain f32 accumulation of f32 or bf16 values.
+//   pinned in VMEM. Here the [n_out, K] output (1 MB at n_out = G =
+//   16,384, 7.3 MB at n_out = Su = 114,688) stays in the 50 MB L2, so the
+//   least time is the [M, K] values and the [M] cdest read once (90-97 MB
+//   at DIN's published point, 0.027-0.029 ms at 3.35 TB/s).
+//   What bounds such a sum here, besides its bytes, is its chains of
+//   atomics on one address. The bucket tail (~130-142K padding slots at
+//   cdest 0, values exactly 0) would send one zero-valued atomic per strip
+//   and column into the same words of row 0, ~4,400 links; at n_out = Su
+//   the hottest id (Zipf 1.2: ~18% of the live slots) is one run of ~210K
+//   slots, ~6,600 strips, all adding into one row; and the ~11-slot runs
+//   there would make ~2.2M scalar atomics.
+//   Design: a block of 256 threads sums 64 consecutive strips of STRIP
+//   slots at K = 16; one thread owns four columns of a strip. It loads
+//   them with one 16-byte load
+//   (f32) or one 8-byte load (bf16) a slot, UNROLL slots ahead of its
+//   running float4 sum, and ends a run at a change of cdest and at the
+//   strip's end. A run of the block's first or last segment (the only
+//   ones that can go on past the block in a sorted stream) adds into a
+//   shared-memory row, and the block adds that row into device memory
+//   once; any other run goes straight there with row_ops.cuh's emit: one
+//   float4 reduction on a 16-byte aligned row (K % 4 == 0), else the
+//   float2 and float ones its alignment allows (K = 5, 17), and none for a
+//   sum of exactly 0. So the padding tail adds nothing, and a segment that
+//   spans many blocks takes one reduction a block and column group: the
+//   chain on the hot row falls from its strips to its blocks (~100).
+//   Neighbouring threads take the column groups of one strip, so a quad of
+//   lanes reads a whole 64-byte row (K = 16). An unsorted stream only
+//   makes more runs. No TF32 and no tensor cores: the sum is a plain f32
+//   accumulation of f32 or bf16 values. On an H100 the launch then follows
+//   its loads: chip_smoke.py times it beside the same launch on all-zero
+//   values, where no reduction is sent (PERF.md).
 //
 // K6 sorted_expand:  out[i, :] = src[cdest[i], :]
 //   Replaces sorted_expand (_sorted_expand_kernel). src is small (1 MB at
@@ -46,56 +65,98 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "row_ops.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int STRIP = 32;  // consecutive slots one K5 thread sums
-constexpr int UNROLL = 8;  // slots loaded ahead of the running sum
+constexpr int UNROLL = 8;  // slots loaded ahead of the running sum (K5)
+static_assert(STRIP % UNROLL == 0, "a K5 strip is whole unrolled steps");
 constexpr int ROWS_PER_TILE = 256;
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// Add the four columns of v (cols of them left in the row) into a row of
+// shared memory; all-zero sums add nothing.
+__device__ __forceinline__ void smem_add4(float* a, int cols, float4 v) {
+  if (v.x == 0.0f && v.y == 0.0f && v.z == 0.0f && v.w == 0.0f) return;
+  atomicAdd(a, v.x);
+  if (cols > 1) atomicAdd(a + 1, v.y);
+  if (cols > 2) atomicAdd(a + 2, v.z);
+  if (cols > 3) atomicAdd(a + 3, v.w);
 }
 
+// A block sums spb consecutive strips: lanes threads a strip, thread
+// (strip, lane) the column groups lane, lane + lanes, ... (groups of four
+// columns, cut at k). edge: 2k floats of dynamic shared memory.
 template <typename T>
-__global__ void sorted_segsum_kernel(const T* __restrict__ vals,
-                                     const int* __restrict__ cdest, long long m,
-                                     int k, long long items, float* __restrict__ out) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= items) return;
-  const long long strip = t / k;
-  const int c = static_cast<int>(t - strip * k);
-  const long long i0 = strip * STRIP;
-  const int n = static_cast<int>(min(static_cast<long long>(STRIP), m - i0));
-  int cur = cdest[i0];
-  float acc = 0.0f;
-  for (int base = 0; base < n; base += UNROLL) {
-    // load UNROLL slots ahead of the dependent sum
-    int d[UNROLL];
-    float v[UNROLL];
+__global__ void __launch_bounds__(THREADS)
+sorted_segsum_kernel(const T* __restrict__ vals, const int* __restrict__ cdest, long long m,
+                     int k, int groups, int lanes, int spb, bool vec,
+                     float* __restrict__ out) {
+  extern __shared__ float edge[];  // sums of the block's first and last segment
+  const long long i_first = static_cast<long long>(blockIdx.x) * spb * STRIP;
+  const long long i_end = min(m, i_first + static_cast<long long>(spb) * STRIP);
+  const int d_first = __ldg(cdest + i_first);
+  const int d_last = __ldg(cdest + i_end - 1);
+  for (int j = threadIdx.x; j < 2 * k; j += blockDim.x) edge[j] = 0.0f;
+  __syncthreads();
+  const long long i0 = i_first + static_cast<long long>(threadIdx.x / lanes) * STRIP;
+  if (threadIdx.x < spb * lanes && i0 < i_end) {
+    const int n = static_cast<int>(min(static_cast<long long>(STRIP), i_end - i0));
+    for (int grp = threadIdx.x % lanes; grp < groups; grp += lanes) {
+      const int c = grp * 4;
+      const int cols = k - c;
+      // a run of the block's first or last segment may go on in the
+      // neighbouring strips and blocks: it adds into shared memory, once a
+      // block into device memory; any other run goes straight there
+      auto put = [&](int d, float4 v) {
+        if (d == d_first) {
+          smem_add4(edge + c, cols, v);
+        } else if (d == d_last) {
+          smem_add4(edge + k + c, cols, v);
+        } else {
+          row_ops::emit(out + static_cast<long long>(d) * k + c, cols, v);
+        }
+      };
+      const T* src = vals + i0 * k + c;
+      int cur = __ldg(cdest + i0);
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int base = 0; base < n; base += UNROLL) {
+        int d[UNROLL];
+        float4 v[UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const long long i = i0 + min(base + u, n - 1);
-      d[u] = cdest[i];
-      v[u] = to_f32(vals[i * k + c]);
-    }
+        for (int u = 0; u < UNROLL; ++u) {  // loads ahead of the dependent sum
+          const int j = min(base + u, n - 1);
+          d[u] = __ldg(cdest + i0 + j);
+          v[u] = row_ops::load4(src + static_cast<long long>(j) * k, cols, vec);
+        }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (base + u >= n) break;
-      if (d[u] != cur) {
-        atomicAdd(out + static_cast<long long>(cur) * k + c, acc);
-        cur = d[u];
-        acc = 0.0f;
+        for (int u = 0; u < UNROLL; ++u) {
+          if (base + u >= n) break;
+          if (d[u] != cur) {
+            put(cur, acc);
+            cur = d[u];
+            acc = v[u];
+          } else {
+            acc = row_ops::add4(acc, v[u]);
+          }
+        }
       }
-      acc += v[u];
+      put(cur, acc);
     }
   }
-  atomicAdd(out + static_cast<long long>(cur) * k + c, acc);
+  __syncthreads();
+  for (int q = threadIdx.x; q < 2 * groups; q += blockDim.x) {
+    const int last = q >= groups;
+    const int c = (q - last * groups) * 4;
+    const int cols = k - c;
+    const float* a = edge + last * k + c;
+    const float4 v = make_float4(a[0], cols > 1 ? a[1] : 0.0f, cols > 2 ? a[2] : 0.0f,
+                                 cols > 3 ? a[3] : 0.0f);
+    row_ops::emit(out + static_cast<long long>(last ? d_last : d_first) * k + c, cols, v);
+  }
 }
 
 // j / k for 0 <= j < ROWS_PER_TILE * k (k < 4096): the float quotient of
@@ -137,14 +198,21 @@ extern "C" {
 int tr_sorted_segsum(const void* vals, const int* cdest, long long m, int k,
                      int vals_is_bf16, float* out, void* stream) {
   if (m > 0) {
-    const long long items = (m + STRIP - 1) / STRIP * k;
+    const int groups = (k + 3) / 4;
+    const int lanes = std::min(groups, THREADS);
+    const int spb = std::max(1, THREADS / groups);
+    const long long strips = (m + STRIP - 1) / STRIP;
+    const unsigned int grid = blocks(strips, spb);
+    const size_t smem = 2 * static_cast<size_t>(k) * sizeof(float);
+    const uintptr_t a = reinterpret_cast<uintptr_t>(vals);
+    const bool vec = k % 4 == 0 && a % (vals_is_bf16 ? 8 : 16) == 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (vals_is_bf16) {
-      sorted_segsum_kernel<__nv_bfloat16><<<blocks(items, THREADS), THREADS, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(vals), cdest, m, k, items, out);
+      sorted_segsum_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
+          static_cast<const __nv_bfloat16*>(vals), cdest, m, k, groups, lanes, spb, vec, out);
     } else {
-      sorted_segsum_kernel<float><<<blocks(items, THREADS), THREADS, 0, s>>>(
-          static_cast<const float*>(vals), cdest, m, k, items, out);
+      sorted_segsum_kernel<float><<<grid, THREADS, smem, s>>>(
+          static_cast<const float*>(vals), cdest, m, k, groups, lanes, spb, vec, out);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -86,7 +86,7 @@ struct CotangentRows {
   __device__ __forceinline__ bool stage(int) const { return true; }
   __device__ __forceinline__ Row at(int j) const { return j * k; }
   __device__ __forceinline__ float4 row(Row r, int c) const {
-    return sort_reduce::load4(tile + r + c, k - c, vec);
+    return row_ops::load4(tile + r + c, k - c, vec);
   }
 };
 

@@ -32,10 +32,10 @@ import torch
 
 from tf_repos_tpu_torch.ops import build
 
-PAIRS = 2048  # (b, f) pairs per kernel tile (csrc/field_block.cu)
-MAX_W = 1024  # the kernel's in-tile element arithmetic is exact up to this
-ACC_FLOATS = 8192  # shared-memory accumulator (32 KB) beside the 16 KB of targets
-HOT_HITS = 4  # a field sums in shared memory if it hits each row this often a tile
+PAIRS = 2048  # (b, f) pairs one kernel block sums before it flushes (as in csrc/field_block.cu)
+MAX_W = 1024  # a kernel warp stages the W floats of at least one pair in its 4 KB
+ACC_FLOATS = 8192  # shared-memory accumulator (32 KB) beside the staged g
+HOT_HITS = 4  # a field sums in shared memory if a block's pairs hit each row this often
 
 
 # ------------------------------------------------------------ plain versions
@@ -86,7 +86,7 @@ def field_plan(offsets: Tuple[int, ...], sizes: Tuple[int, ...], w: int) -> Tupl
     """The kernel's field table, offsets + sizes + the shared-memory base of
     each field's accumulator (-1: the field adds straight into device
     memory), and the accumulator's size in floats. A field takes an
-    accumulator when a tile of PAIRS pairs is expected to hit each of its
+    accumulator when a block's PAIRS pairs are expected to hit each of its
     rows at least HOT_HITS times, while the accumulators fit ACC_FLOATS."""
     per_field = PAIRS / len(offsets)
     base, n_acc = [], 0
@@ -112,7 +112,7 @@ def field_block_scatter(
     """dtable f32 [vocab, W] = the field-masked (and, with use_bf16,
     bf16-rounded) scatter-add of g at ids. ids int32 [B, F] and g f32
     [B, F, W], both contiguous; offsets and sizes one per field. The
-    kernel adds with atomics in no fixed order."""
+    kernel adds with vector atomics in no fixed order."""
     offsets, sizes = tuple(int(o) for o in offsets), tuple(int(s) for s in sizes)
     if ids.device.type == "cpu":
         return field_block_scatter_plain(ids, g, vocab, offsets, sizes, use_bf16)

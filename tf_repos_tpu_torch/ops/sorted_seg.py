@@ -78,7 +78,8 @@ def _check(what: str, x: torch.Tensor, cdest: torch.Tensor) -> int:
 def sorted_segsum(vals: torch.Tensor, cdest: torch.Tensor, n_out: int) -> torch.Tensor:
     """out[j,:] = sum over {i: cdest[i] == j} of vals[i,:], f32 [n_out,K].
     vals [M,K] f32 or bf16, contiguous; cdest int32 [M]. The kernel adds
-    one run sum per strip with atomics, in no fixed order."""
+    each run of a strip with vector atomics, in no fixed order, and skips
+    sums of exactly 0."""
     if vals.device.type == "cpu":
         return sorted_segsum_plain(vals, cdest, n_out)
     if vals.device.type != "cuda":

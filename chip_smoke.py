@@ -36,6 +36,11 @@ result line):
         coo_accumulate_rows must satisfy |kernel - plain| <=
         1e-4 * sum_i |w_i x_i| + 1e-6 per element, for the same reason,
         and coo_accumulate_rows at its tile's edges as accumulate_rows;
+        beside the coo_pool_rows time, the reductions it sends to device
+        memory and the longest chain on one address, under the first
+        design's flat walk and this strip walk (pool_reductions), its
+        time on an all-zero table, where it sends none, and the time of
+        the wrapper's zero fill alone;
         expand_rows (bit-exact) and accumulate_rows at the same S on the
         single-valued fields' ids, the table being the w columns of the
         [S, 48] store;
@@ -388,26 +393,68 @@ def held(name, got, want, scale) -> float:
     return float(d.max())
 
 
-def esmm_kernel_phase(dev):
+def esmm_point(dev):
+    """One ESMM batch at the published point through the port's host chain
+    (packer with combine, mapper), and K3's and K4's inputs on the card:
+    the COO triplet, K3's table (the w columns of the gathered [S, 3K]
+    w|m|v rows: a [S, K] view with row stride 3K, as on the main path) and
+    K4's cotangent dp [G, K]."""
     model = create_model(Config(**ESMM_WIDTH))
-    vocab = ESMM_WIDTH["feature_size"]
     raw = esmm_batches(1)[0]
-    live = int(sum((raw[f] > 0).sum() for f in MH_FIELDS))
     mapped = esmm_chain(model)(raw)
     idx, dest, w = (torch.from_numpy(mapped[key].reshape(-1)).to(dev)
                     for key in (MHC_IDX, MHC_DEST, MHC_W))
-    m, m_live = idx.shape[0], int(mapped[MHC_CNT].sum())
-    s = int(mapped["__uids_emb"].shape[0])
-    uniq = int((mapped["__uids_emb"] < vocab).sum())
-    k = ESMM_WIDTH["embedding_size"]
+    s, k = int(mapped["__uids_emb"].shape[0]), ESMM_WIDTH["embedding_size"]
     g = EB * len(model.mh_coo_groups())
-    log(f"ESMM host shapes: {live} live multi-hot slots before combine, {m_live} after "
-        f"(COO bucket M={m}); {uniq} unique ids (uids bucket S={s}); pooled rows G={g}; K={k}")
     gen = torch.Generator(device=dev).manual_seed(1)
-    # on the main path the table is the w columns of the gathered [S, 3K]
-    # w|m|v rows: a [S, K] view with row stride 3K
     table = torch.randn((s, 3 * k), generator=gen, device=dev)[:, :k]
     dp = torch.randn((g, k), generator=gen, device=dev)
+    return dict(model=model, raw=raw, mapped=mapped, idx=idx, dest=dest, w=w, m=idx.shape[0],
+                m_live=int(mapped[MHC_CNT].sum()), s=s, k=k, g=g, gen=gen, table=table, dp=dp)
+
+
+K3_STRIP = 16  # slots one K3 thread sums (csrc/coo_pool.cu STRIP)
+
+
+def pool_reductions(dest, w, k):
+    """What one K3 launch sends to device memory, counted on the host from
+    its slots, every sum taken as non-zero. Returns (scalar, chain_scalar,
+    vector, chain_vector): the first design's scalar atomics and the most
+    of them on one address; this design's reductions (one per run and
+    column group of four: a float4 at K % 4 == 0) and the most of them on
+    one address. The first design walked each 256-slot tile's products
+    j = r * k + c as one flat run, thread t the products t, t + 256, ...;
+    a live product (w != 0) whose target dest * k + c differed from the
+    thread's last sent the last one's sum as one atomic, and so did the
+    thread's last target. This design's run is the live slots of one
+    K3_STRIP-slot strip between changes of dest."""
+    d = dest.cpu().numpy().astype(np.int64)
+    pos = np.flatnonzero(w.cpu().numpy() != 0)
+    groups = -(-k // 4)
+    # the flat walk: live products in (tile, thread, step) order
+    slot, c = np.repeat(pos, k), np.tile(np.arange(k), pos.size)
+    j = (slot % 256) * k + c
+    thread = slot // 256 * 256 + j % 256
+    order = np.argsort(thread * k + j // 256, kind="stable")
+    thread, tgt = thread[order], (d[slot] * k + c)[order]
+    sent = tgt[np.concatenate([[True], (thread[1:] != thread[:-1]) | (tgt[1:] != tgt[:-1])])]
+    # this design: runs of live slots within a strip
+    dl, strip = d[pos], pos // K3_STRIP
+    runs = dl[np.concatenate([[True], (strip[1:] != strip[:-1]) | (dl[1:] != dl[:-1])])]
+    return (sent.size, int(np.bincount(sent).max()) if sent.size else 0,
+            runs.size * groups, int(np.bincount(runs).max()) if runs.size else 0)
+
+
+def esmm_kernel_phase(dev):
+    pt = esmm_point(dev)
+    model, mapped, gen, table, dp = pt["model"], pt["mapped"], pt["gen"], pt["table"], pt["dp"]
+    idx, dest, w, m, m_live = pt["idx"], pt["dest"], pt["w"], pt["m"], pt["m_live"]
+    s, k, g = pt["s"], pt["k"], pt["g"]
+    vocab = ESMM_WIDTH["feature_size"]
+    live = int(sum((pt["raw"][f] > 0).sum() for f in MH_FIELDS))
+    uniq = int((mapped["__uids_emb"] < vocab).sum())
+    log(f"ESMM host shapes: {live} live multi-hot slots before combine, {m_live} after "
+        f"(COO bucket M={m}); {uniq} unique ids (uids bucket S={s}); pooled rows G={g}; K={k}")
 
     def pool_err(name, t, i, d, ww):
         return held(name, CP.coo_pool_rows(t, i, d, ww, g), CP.coo_pool_rows_plain(t, i, d, ww, g),
@@ -520,6 +567,19 @@ def esmm_kernel_phase(dev):
         log(f"kernel {name}: max_abs_err {err[name]:.3e}  {ms:.4f} ms  plain {plain:.4f} ms  "
             f"library ({lib_name[name]}) {lib:.4f} ms  bound {bound:.4f} ms ({bound_by}: "
             f"{nbytes / 1e6:.1f} MB, {2 * m * k / 1e6:.1f} MFLOP)")
+    # what sets K3: its reductions, its time with none sent (an all-zero
+    # table, built outside the timed calls), and the wrapper's zero fill
+    r = pool_reductions(dest, w, k)
+    zt = torch.zeros((s, 3 * k), device=dev)[:, :k]  # the same view, every row 0
+    t_zero = cuda_ms(lambda: CP.coo_pool_rows(zt, idx, dest, w, g))
+    t_fill = cuda_ms(lambda: torch.zeros((g, k), device=dev))
+    n_live = int((w != 0).sum())
+    log(f"kernel coo_pool_rows reductions into device memory: first (flat-walk) design "
+        f"{r[0]} scalar atomics, longest chain {r[1]} on one address; this design (strip "
+        f"{K3_STRIP}) {r[2]} vector reductions, longest chain {r[3]} (sums of exactly 0 "
+        f"skipped); on an all-zero table, with no reduction sent, {t_zero:.4f} ms; the "
+        f"wrapper's zero fill alone {t_fill:.4f} ms; table rows gathered {n_live} x "
+        f"{k * 4} B = {n_live * k * 4 / 1e6:.1f} MB")
     slots, tiles = longest_chain(idx, tile4, live=w != 0)
     log(f"kernel coo_accumulate_rows: longest chain {slots} live slots on one id, held by "
         f"{tiles} of {-(-m // tile4)} tiles")

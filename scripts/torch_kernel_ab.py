@@ -1,27 +1,33 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's K5 sorted_segsum and K8 field_block_scatter
-against another checkout's designs of the same kernels, on one NVIDIA GPU.
+"""Time the PyTorch port's K3 coo_pool_rows, K4 coo_accumulate_rows, K5
+sorted_segsum and K8 field_block_scatter against another checkout's
+designs of the same kernels, on one NVIDIA GPU.
 
-    python3 scripts/torch_kernel_ab.py --baseline=DIR [--variant=DIR ...] [--out=FILE]
+    python3 scripts/torch_kernel_ab.py --baseline=DIR [--variant=DIR ...] [--source=NAME ...]
+                                       [--out=FILE]
 
 DIR is another checkout of this repository (for instance the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
-lists). Its ``tf_repos_tpu_torch/ops/{sorted_seg,field_block}.py`` are
-loaded beside this tree's, with their kernels built by nvcc from DIR's
-``ops/csrc`` into ``DIR/_ab_build/``, so each side is timed through its own
-wrapper: argument checks, output allocation and zero fill included, as
-``chip_smoke.py`` times a kernel. Each --variant DIR (another design of
-the same kernels, in the same layout) is loaded and timed the same way.
+lists). Its ``tf_repos_tpu_torch/ops/{coo_pool,sorted_seg,field_block}.py``
+are loaded beside this tree's, with their kernels built by nvcc from
+DIR's ``ops/csrc`` into ``DIR/_ab_build/`` at first use, so each side is
+timed through its own wrapper: argument checks, output allocation and
+zero fill included, as ``chip_smoke.py`` times a kernel. Each --variant
+DIR (another design of the same kernels, in the same layout) is loaded
+and timed the same way.
 
-Points, the inputs of ``chip_smoke.py``'s kernel phases: K5 at DIN's
-published point at n_out = G (the pool) and n_out = Su (the
---coo_sorted_bwd runs, where the TPU ran sorted_segsum_packed); K8 at the
-DeepFM point in bf16 mode. Each point is held to its plain version on
-every side (the chip_smoke tolerance), then timed with CUDA events over
-50 back-to-back calls (``chip_smoke.cuda_ms``) in the order baseline,
-this tree, the variants, then the same backwards; the plain version
-once. Every time goes to the log and, as one JSON object, to stdout and
-to --out, with the card's name and power limit.
+Points, the inputs of ``chip_smoke.py``'s kernel phases: K3 and K4 at
+the ESMM published point (K4 shares K3's source file and is the
+control: its code is the same on both sides); K5 at DIN's published
+point at n_out = G (the pool) and n_out = Su (the --coo_sorted_bwd
+runs, where the TPU ran sorted_segsum_packed); K8 at the DeepFM point
+in bf16 mode. --source keeps the kernels of ``ops/NAME.py`` (coo_pool,
+sorted_seg, field_block; all by default). Each point is held to its
+plain version on every side (the chip_smoke tolerance), then timed with
+CUDA events over 50 back-to-back calls (``chip_smoke.cuda_ms``) in the
+order baseline, this tree, the variants, then the same backwards; the
+plain version once. Every time goes to the log and, as one JSON object,
+to stdout and to --out, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ sys.path.insert(0, HERE)
 
 import chip_smoke as CS  # noqa: E402
 from tf_repos_tpu_torch.ops import build  # noqa: E402
+from tf_repos_tpu_torch.ops import coo_pool as CP  # noqa: E402
 from tf_repos_tpu_torch.ops import field_block as FB  # noqa: E402
 from tf_repos_tpu_torch.ops import sorted_seg as SG  # noqa: E402
 
@@ -65,6 +72,9 @@ class _BaselineBuild:
         return ctypes.CDLL(out)
 
 
+SOURCES = ("coo_pool", "sorted_seg", "field_block")
+
+
 def baseline_module(root: str, name: str):
     """DIR's ops/<name>.py as a module of its own, building from DIR."""
     path = os.path.join(root, "tf_repos_tpu_torch", "ops", f"{name}.py")
@@ -79,6 +89,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True, help="another checkout of this repository")
     ap.add_argument("--variant", action="append", default=[], help="another design, timed beside")
+    ap.add_argument("--source", action="append", choices=SOURCES,
+                    help="time only the kernels of ops/NAME.py")
     ap.add_argument("--out", help="also write the JSON report here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -90,25 +102,38 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     CS.log(card)
     build.build_all()
+    names = args.source or SOURCES
     sides = {"baseline": args.baseline, **{d: d for d in args.variant}}
-    mods = {side: {n: baseline_module(d, n) for n in ("sorted_seg", "field_block")}
-            for side, d in sides.items()}
-    mods["this tree"] = {"sorted_seg": SG, "field_block": FB}
+    mods = {side: {n: baseline_module(d, n) for n in names} for side, d in sides.items()}
+    mods["this tree"] = {"coo_pool": CP, "sorted_seg": SG, "field_block": FB}
     order = ["baseline", "this tree", *args.variant]
 
-    pt = CS.din_point(dev)
-    _, ids, g = CS.field_block_point(dev)
-    fb_args = (CS.WIDTH["feature_size"], CS.FB_OFFSETS, CS.FB_SIZES, True)
-    points = {
-        "sorted_segsum (n_out=G)": ("sorted_seg", "sorted_segsum", (pt["vals"], pt["cdest"], pt["g"])),
-        "sorted_segsum (n_out=Su)": ("sorted_seg", "sorted_segsum", (pt["sct"], pt["cidx"], pt["su"])),
-        "field_block_scatter (bf16 mode)": ("field_block", "field_block_scatter", (ids, g, *fb_args)),
-    }
+    # label: (source, function, arguments, the arguments whose abs gives
+    # the tolerance's scale)
+    points = {}
+    if "coo_pool" in names:
+        e = CS.esmm_point(dev)
+        idx, dest, w = e["idx"], e["dest"], e["w"]
+        points["coo_pool_rows (ESMM point)"] = ("coo_pool", "coo_pool_rows",
+                                                (e["table"], idx, dest, w, e["g"]), (0, 3))
+        points["coo_accumulate_rows (ESMM point)"] = ("coo_pool", "coo_accumulate_rows",
+                                                      (e["dp"], idx, dest, w, e["s"]), (0, 3))
+    if "sorted_seg" in names:
+        pt = CS.din_point(dev)
+        points["sorted_segsum (n_out=G)"] = ("sorted_seg", "sorted_segsum",
+                                             (pt["vals"], pt["cdest"], pt["g"]), (0,))
+        points["sorted_segsum (n_out=Su)"] = ("sorted_seg", "sorted_segsum",
+                                              (pt["sct"], pt["cidx"], pt["su"]), (0,))
+    if "field_block" in names:
+        _, ids, g = CS.field_block_point(dev)
+        points["field_block_scatter (bf16 mode)"] = (
+            "field_block", "field_block_scatter",
+            (ids, g, CS.WIDTH["feature_size"], CS.FB_OFFSETS, CS.FB_SIZES, True), (1,))
     report = {"card": card, "points": {}}
-    for label, (mod, fn, a) in points.items():
-        plain = getattr(SG if mod == "sorted_seg" else FB, f"{fn}_plain")
+    for label, (mod, fn, a, absolute) in points.items():
+        plain = getattr(mods["this tree"][mod], f"{fn}_plain")
         want = plain(*a)
-        scale = plain(a[0].abs(), *a[1:]) if mod == "sorted_seg" else plain(a[0], a[1].abs(), *a[2:])
+        scale = plain(*(x.abs() if i in absolute else x for i, x in enumerate(a)))
         call = {side: getattr(mods[side][mod], fn) for side in order}
         for side in order:
             CS.held(f"{label} {side}", call[side](*a), want, scale)

@@ -142,25 +142,55 @@ def _coo(m, s, g, pad, seed=0, runs=True):
             ((idx, np.int32), (dest, np.int32), (w, np.float32))]
 
 
-@pytest.mark.parametrize("m,s,g,k,pad,runs", [
-    (655_360, 114_688, 20_480, 16, 0, True),  # the ESMM published point's shapes
-    (200_000, 5_000, 4_096, 16, 0, False),  # shuffled triplets
-    (30_000, 2_000, 640, 16, 90_000, True),  # pad-heavy
-    (513, 40, 7, 5, 3, True),
+K3_STRIP, K3_BLOCK = 16, 1_024  # csrc/coo_pool.cu: slots a strip, slots a block at K = 16
+
+
+@pytest.mark.parametrize("m,s,g,k,pad,case", [
+    (655_360, 114_688, 20_480, 16, 0, "runs"),  # the ESMM published point's shapes
+    (200_000, 5_000, 4_096, 16, 0, "shuffled"),  # shuffled triplets
+    (30_000, 2_000, 640, 16, 90_000, "runs"),  # pad-heavy
+    (513, 40, 7, 5, 3, "runs"),
+    (10_000, 300, 4, 16, 0, "one"),  # one bag of 10,000 slots: many strips and blocks
+    # runs of ~5 and ~130 slots across the strip and the block edges
+    (K3_STRIP - 1, 40, 3, 16, 0, "runs"),
+    (K3_STRIP, 40, 3, 16, 0, "runs"),
+    (K3_STRIP + 1, 40, 3, 16, 0, "runs"),
+    (K3_BLOCK - 1, 300, 8, 16, 0, "runs"),
+    (K3_BLOCK + 1, 300, 8, 16, 0, "runs"),
+    # K = 5, 17 and 48 ([S, 51] at K = 17: an odd row stride, scalar loads)
+    (50_000, 3_000, 512, 5, 1_000, "runs"),
+    (50_000, 3_000, 512, 17, 1_000, "runs"),
+    (50_000, 3_000, 512, 48, 1_000, "runs"),
+    (50_000, 3_000, 512, 16, 1_000, "col1"),  # a view from column 1: scalar loads
+    (50_000, 3_000, 512, 16, 0, "nan"),  # a NaN table row reaches its bags' rows
+    (50_000, 3_000, 512, 16, 1_000, "signed0"),  # +-0 weights inside the runs
+    (50_000, 3_000, 512, 16, 1_000, "off1"),  # slot arrays 4 bytes off 16: one load a slot
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_coo_pool_matches_plain(dev, m, s, g, k, pad, runs, dtype):
+def test_coo_pool_matches_plain(dev, m, s, g, k, pad, case, dtype):
     wide = torch.randn((s, 3 * k), device=dev).to(dtype)
-    table = wide[:, :k]  # row-strided view, as on the main path
-    idx, dest, w = (t.to(dev) for t in _coo(m, s, g, pad, runs=runs))
+    # row-strided view, as on the main path
+    table = wide[:, 1:k + 1] if case == "col1" else wide[:, :k]
+    idx, dest, w = (t.to(dev) for t in _coo(m, s, g, pad, runs=case != "shuffled"))
+    if case == "off1":
+        idx, dest, w = idx[1:], dest[1:], w[1:]
+    elif case == "one":
+        dest[:m] = g - 1
+    elif case == "nan":
+        table[idx[m // 2]] = float("nan")
+    elif case == "signed0":
+        w[:m:3] = -0.0
+        w[1:m:7] = 0.0
     before = CP.coo_pool_rows.launches
     got = CP.coo_pool_rows(table, idx, dest, w, g)
     torch.cuda.synchronize()
     assert CP.coo_pool_rows.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (g, k)
     want = CP.coo_pool_rows_plain(table, idx, dest, w, g)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and bool(nan.any()) == (case == "nan")
     scale = CP.coo_pool_rows_plain(table.abs(), idx, dest, w.abs(), g)
-    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+    assert bool(((got - want).abs()[~nan] <= 1e-4 * scale[~nan] + 1e-6).all())
 
 
 @pytest.mark.parametrize("m,s,g,k,pad,runs,zero_rows", [

@@ -6,19 +6,42 @@
 //   the pooled output in VMEM and walked the slots with ordered scalar
 //   read-modify-writes. Here the table (S x K f32, ~7 MB of a [S, 3K]
 //   w|m|v store on the ESMM main path, read through its row stride) and
-//   the [n_out, K] output (1.3 MB) stay in the 50 MB L2, so the kernel is
-//   bound by the bytes of the three M-long slot arrays (12 B per slot)
-//   plus one pass over the table and the output. Design: one block per
-//   tile of ROWS_PER_TILE slots; the block stages the tile's idx, dest
-//   and w in shared memory, then its threads walk the tile's
-//   ROWS_PER_TILE * K products as one flat run, so consecutive threads
-//   read consecutive table words. The output is shared by many slots
-//   (the packer emits each (group, row) bag as a contiguous run, ~135
-//   slots for the largest field after combine), so per-element atomics
-//   would pile onto the same K words: each thread instead sums its
-//   products while the target (dest, column) stays the same and issues
-//   one atomicAdd when it changes. That is a saving, not a contract:
-//   any order of slots gives the same sum up to float rounding.
+//   the [n_out, K] output (1.3 MB) stay in the 50 MB L2, so the least
+//   time is the three M-long slot arrays (12 B per slot) plus one pass
+//   over the table and the output (16.5 MB at the ESMM point, 0.0049 ms
+//   at 3.35 TB/s). What held the first design back was its atomics: it
+//   walked each 256-slot tile's products as one flat run over the
+//   block's threads, so every (group, row) bag, which the packer emits as
+//   one contiguous run of slots (~32 on average, ~250 at most after
+//   combine), was spread over all K column owners and many threads, and
+//   each change of target sent one scalar atomicAdd: ~3.8M of them onto
+//   an output of 330K floats at the ESMM point.
+//   Design (K5's strip walk of sorted_seg.cu, with the gather and the
+//   weight): a block of 256 threads sums 64 consecutive strips of STRIP
+//   slots at K = 16; one thread owns four columns of a strip, so a quad
+//   of lanes reads a whole 64-byte table row. A thread takes its strip
+//   UNROLL slots at a time: their idx, dest and w with one 16-byte load
+//   each (one load a slot where the arrays are not 16-byte aligned, and
+//   at the ragged end), then their UNROLL table rows together, each with
+//   one 16-byte load (f32) or one 8-byte load (bf16) where K, the row
+//   stride and the base allow (K % 4 == 0, ld % 4 == 0, base aligned;
+//   else one load a column: K = 5, 17, a view at column 1, an odd
+//   stride). It keeps a float4 running sum of w * row while dest is
+//   unchanged and adds it into the output at a change of dest and at the
+//   strip's end with row_ops.cuh's emit: one float4 reduction on a
+//   16-byte aligned row, else the float2 and float ones its alignment
+//   allows, and none for a sum of exactly 0. A bag then costs one
+//   reduction a strip it touches and column group (~240K float4
+//   reductions at the ESMM point, against ~3.8M scalar atomics); the
+//   longest bag (~250 slots) spans at most 17 strips, so no run needs a
+//   shared-memory sum across blocks as K5's hot segment does. A shuffled
+//   slot order only makes more runs, and so more reductions: the sum is
+//   the same. No tensor cores: a plain f32 accumulation of f32 or bf16
+//   rows. STRIP = 16 fills an H100 in one wave at the ESMM point (640
+//   blocks, five an SM at 48 registers a thread); there the launch
+//   follows its row gathers (64 bytes a live slot, from L2), not its
+//   reductions: it takes as long on an all-zero table, where it sends
+//   none (PERF.md).
 //
 // K4 coo_accumulate_rows:  d[idx[i], :] += w[i] * dp[dest[i], :]
 //   Replaces coo_accumulate_rows (_coo_pool_bwd_kernel) and, by function,
@@ -56,62 +79,84 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ROWS_PER_TILE = 256;
+constexpr int STRIP = 16;  // consecutive slots one K3 thread sums
+constexpr int UNROLL = 4;  // slots whose table rows one K3 thread has in flight
+static_assert(STRIP % UNROLL == 0 && UNROLL % 4 == 0, "a K3 strip is whole 16-byte steps");
 
-// j / k for 0 <= j < ROWS_PER_TILE * k (k < 4096): the float quotient of
-// (j + 0.5) / k sits at least 0.5 / k away from an integer, far beyond
-// the float rounding error at these magnitudes, so truncation is exact.
-__device__ __forceinline__ int tile_row(int j, float inv_k) {
-  return static_cast<int>((static_cast<float>(j) + 0.5f) * inv_k);
-}
-
-using row_ops::to_f32;
-
-// One tile of K3: out[tgt[i] * k + c] += w[i] * src[src_row[i] * ld + c]
-// with (src, src_row, tgt) = (table, idx, dest). ld is the source row
-// stride in elements.
-template <typename T>
-__device__ __forceinline__ void coo_scatter_tile(const T* __restrict__ src, long long ld,
-                                                 const int* __restrict__ src_row,
-                                                 const int* __restrict__ tgt,
-                                                 const float* __restrict__ w, long long m,
-                                                 int k, float inv_k, float* __restrict__ out) {
-  __shared__ long long src_off[ROWS_PER_TILE];
-  __shared__ long long tgt_off[ROWS_PER_TILE];
-  __shared__ float wt[ROWS_PER_TILE];
-  const long long row0 = static_cast<long long>(blockIdx.x) * ROWS_PER_TILE;
-  const int rows = static_cast<int>(min(static_cast<long long>(ROWS_PER_TILE), m - row0));
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    src_off[r] = static_cast<long long>(src_row[row0 + r]) * ld;
-    tgt_off[r] = static_cast<long long>(tgt[row0 + r]) * k;
-    wt[r] = w[row0 + r];
-  }
-  __syncthreads();
-  const int elems = rows * k;
-  long long cur = -1;  // output element of the running sum
-  float acc = 0.0f;
-  for (int j = threadIdx.x; j < elems; j += blockDim.x) {
-    const int r = tile_row(j, inv_k);
-    const float wr = wt[r];
-    if (wr == 0.0f) continue;
-    const int c = j - r * k;
-    const long long o = tgt_off[r] + c;
-    if (o != cur) {
-      if (cur >= 0) atomicAdd(out + cur, acc);
-      cur = o;
-      acc = 0.0f;
+// The idx, dest and w of UNROLL consecutive slots of a strip of n, from
+// its slot base on: 16-byte loads where the step lies inside the strip
+// and the arrays are 16-byte aligned (vec), else one load a slot, w = 0
+// past the strip's end.
+struct Slots {
+  int idx[UNROLL], dest[UNROLL];
+  float w[UNROLL];
+  __device__ __forceinline__ void fetch(const int* __restrict__ idx0, const int* __restrict__ dest0,
+                                        const float* __restrict__ w0, int base, int n, bool vec) {
+    if (vec && base + UNROLL <= n) {
+#pragma unroll
+      for (int u = 0; u < UNROLL; u += 4) {
+        const int4 a = __ldg(reinterpret_cast<const int4*>(idx0 + base + u));
+        const int4 d = __ldg(reinterpret_cast<const int4*>(dest0 + base + u));
+        const float4 v = __ldg(reinterpret_cast<const float4*>(w0 + base + u));
+        idx[u] = a.x, idx[u + 1] = a.y, idx[u + 2] = a.z, idx[u + 3] = a.w;
+        dest[u] = d.x, dest[u + 1] = d.y, dest[u + 2] = d.z, dest[u + 3] = d.w;
+        w[u] = v.x, w[u + 1] = v.y, w[u + 2] = v.z, w[u + 3] = v.w;
+      }
+      return;
     }
-    acc += wr * to_f32(src[src_off[r] + c]);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int j = min(base + u, n - 1);
+      idx[u] = __ldg(idx0 + j);
+      dest[u] = __ldg(dest0 + j);
+      w[u] = base + u < n ? __ldg(w0 + j) : 0.0f;
+    }
   }
-  if (cur >= 0) atomicAdd(out + cur, acc);
-}
+};
 
+// K3. A block sums spb consecutive strips: lanes threads a strip, thread
+// (strip, lane) the column groups lane, lane + lanes, ... (groups of four
+// columns, cut at k). A slot with w == 0 adds nothing and ends no run.
 template <typename T>
-__global__ void coo_pool_kernel(const T* __restrict__ table, long long ld,
-                                const int* __restrict__ idx, const int* __restrict__ dest,
-                                const float* __restrict__ w, long long m, int k,
-                                float inv_k, float* __restrict__ out) {
-  coo_scatter_tile<T>(table, ld, idx, dest, w, m, k, inv_k, out);
+__global__ void __launch_bounds__(THREADS)
+coo_pool_kernel(const T* __restrict__ table, long long ld, const int* __restrict__ idx,
+                const int* __restrict__ dest, const float* __restrict__ w, long long m, int k,
+                int groups, int lanes, int spb, bool vec_slots, bool vec_rows,
+                float* __restrict__ out) {
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * spb + threadIdx.x / lanes) * STRIP;
+  if (threadIdx.x >= spb * lanes || i0 >= m) return;
+  const int n = static_cast<int>(min(static_cast<long long>(STRIP), m - i0));
+  for (int grp = threadIdx.x % lanes; grp < groups; grp += lanes) {
+    const int c = grp * 4;
+    const int cols = k - c;
+    int cur = -1;  // dest of the running sum
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int base = 0; base < n; base += UNROLL) {
+      Slots now;
+      now.fetch(idx + i0, dest + i0, w + i0, base, n, vec_slots);
+      float4 x[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {  // the table rows, in flight together
+        const T* row = table + static_cast<long long>(now.idx[u]) * ld + c;
+        x[u] = now.w[u] != 0.0f ? row_ops::load4(row, cols, vec_rows)
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const float wu = now.w[u];
+        if (wu == 0.0f) continue;
+        if (now.dest[u] != cur) {
+          if (cur >= 0) row_ops::emit(out + static_cast<long long>(cur) * k + c, cols, acc);
+          cur = now.dest[u];
+          acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+        acc = make_float4(fmaf(wu, x[u].x, acc.x), fmaf(wu, x[u].y, acc.y),
+                          fmaf(wu, x[u].z, acc.z), fmaf(wu, x[u].w, acc.w));
+      }
+    }
+    if (cur >= 0) row_ops::emit(out + static_cast<long long>(cur) * k + c, cols, acc);
+  }
 }
 
 // K4: one tile of the sort-and-reduce scatter; a slot's row is
@@ -151,10 +196,6 @@ coo_accumulate_kernel(const float* __restrict__ dp, const int* __restrict__ idx,
                                            sent, bits, k, out);
 }
 
-inline unsigned int tiles(long long m) {
-  return static_cast<unsigned int>((m + ROWS_PER_TILE - 1) / ROWS_PER_TILE);
-}
-
 }  // namespace
 
 extern "C" {
@@ -165,15 +206,24 @@ int tr_coo_pool_rows(const void* table, long long ld, const int* idx,
                      const int* dest, const float* w, long long m, int k,
                      int table_is_bf16, float* out, void* stream) {
   if (m > 0) {
-    const float inv_k = 1.0f / static_cast<float>(k);
+    const int groups = (k + 3) / 4;
+    const int lanes = groups < THREADS ? groups : THREADS;
+    const int spb = THREADS / groups > 1 ? THREADS / groups : 1;
+    const long long strips = (m + STRIP - 1) / STRIP;
+    const unsigned grid = static_cast<unsigned>((strips + spb - 1) / spb);
+    const uintptr_t a = reinterpret_cast<uintptr_t>(table);
+    const bool vec_rows = k % 4 == 0 && ld % 4 == 0 && a % (table_is_bf16 ? 8 : 16) == 0;
+    const bool vec_slots = (reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(dest) |
+                            reinterpret_cast<uintptr_t>(w)) % 16 == 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (table_is_bf16) {
-      coo_pool_kernel<__nv_bfloat16><<<tiles(m), THREADS, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(table), ld, idx, dest, w, m, k,
-          inv_k, out);
+      coo_pool_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(table), ld, idx, dest, w, m, k, groups, lanes, spb,
+          vec_slots, vec_rows, out);
     } else {
-      coo_pool_kernel<float><<<tiles(m), THREADS, 0, s>>>(
-          static_cast<const float*>(table), ld, idx, dest, w, m, k, inv_k, out);
+      coo_pool_kernel<float><<<grid, THREADS, 0, s>>>(
+          static_cast<const float*>(table), ld, idx, dest, w, m, k, groups, lanes, spb, vec_slots,
+          vec_rows, out);
     }
   }
   return static_cast<int>(cudaGetLastError());

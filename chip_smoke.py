@@ -7,7 +7,8 @@
                                                    # (PATH, and PATH with _esmm, _din...)
 
 Four main paths, each driven through the CLI with every launch counter
-set to 0 just before and read just after: DeepFM (the lazy-sparse step
+set to 0 just before and read just after, then serving from their
+checkpoints (K1 over the whole table, its counter likewise): DeepFM (the lazy-sparse step
 on K1 expand_rows / K2 accumulate_rows), ESMM with --mh_coo
 --dma_scatter (which adds K3 coo_pool_rows / K4 coo_accumulate_rows and
 the K7 dma_row_scatter write-back), DIN attention with --mh_coo (K1, K2,
@@ -91,6 +92,18 @@ result line):
      5e-4); DeepFM dense --field_blocks at B=1024: loss within 1e-4
      relative, and every weight within 1e-4 once the CPU's steps take
      the card's ReLU gates (field_block_trajectory says why);
+  4b. serving, from the main paths' checkpoints: DeepFM at the bench
+     width exported and inferred (one te batch) through the CLI, then
+     served by PredictionServer(grpc_port=-1, device="cuda"): REST
+     requests of 1, 8, 64 and 512 instances, a columnar and a grpc-web
+     request and one with ids -1, V and 2**31-1, each equal to
+     Scorer.score on the card and within 2e-2 of a CPU scorer (bf16
+     towers); pred.txt within 2e-2 of the card scorer; K1 launched at
+     least once a scored batch; hot reload; latency per bucket (50
+     scorer calls each) and HTTP round trips; ESMM and DIN exported and
+     scored (one bucket of 64 va lines) by the card's and a CPU scorer;
+     K1 at each scorer's gather over the whole table, bit-exact, timed
+     beside index_select;
 then the kernel report line and, last, the device line.
 """
 
@@ -103,6 +116,7 @@ import shutil
 import subprocess
 import sys
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -112,6 +126,7 @@ sys.path.insert(0, HERE)
 
 from tf_repos_tpu_torch import main as cli  # noqa: E402
 from tf_repos_tpu_torch.config import Config  # noqa: E402
+from tf_repos_tpu_torch.data.libsvm import LibsvmDataset  # noqa: E402
 from tf_repos_tpu_torch.data.ragged import MH_PAIRS, parse_aliccp_lines  # noqa: E402
 from tf_repos_tpu_torch.data.sparse_batch import (  # noqa: E402
     MHC_CDEST,
@@ -140,6 +155,9 @@ from tf_repos_tpu_torch.ops import field_block as FB  # noqa: E402
 from tf_repos_tpu_torch.ops import row_scatter as RS  # noqa: E402
 from tf_repos_tpu_torch.ops import sorted_seg as SG  # noqa: E402
 from tf_repos_tpu_torch.ops import sparse_rows as SR  # noqa: E402
+from tf_repos_tpu_torch.serve import predict_proto as PP  # noqa: E402
+from tf_repos_tpu_torch.serve.scorer import Scorer  # noqa: E402
+from tf_repos_tpu_torch.serve.server import PredictionServer  # noqa: E402
 from tf_repos_tpu_torch.train import loop as L  # noqa: E402
 from tf_repos_tpu_torch.train import sparse as SP  # noqa: E402
 from tf_repos_tpu_torch.train.harness import to_device  # noqa: E402
@@ -1146,6 +1164,262 @@ def field_block_main_path(dev, work):
     return launches
 
 
+# ------------------------------------------------------------- phase 4b
+SERVE_BUCKETS = (1, 8, 64, 512)
+LAT_CALLS = 50  # scorer calls a bucket, and HTTP requests a size, for the latency
+
+
+def pcts(xs):
+    return float(np.percentile(xs, 50)), float(np.percentile(xs, 99))
+
+
+def http_json(port, path, payload=None):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def json_instances(inst):
+    return [{k: np.asarray(v).tolist() for k, v in i.items()} for i in inst]
+
+
+def grpc_web_predict(port, inst, model):
+    """One grpc-web framed PredictRequest to the HTTP server; the decoded
+    outputs and the trailer."""
+    msg = PP.encode_predict_request({k: np.stack([np.asarray(i[k]) for i in inst]) for k in inst[0]},
+                                    model, "serving_default")
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/tensorflow.serving.PredictionService/Predict",
+        data=b"\x00" + len(msg).to_bytes(4, "big") + msg,
+        headers={"Content-Type": "application/grpc-web+proto"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        body = r.read()
+    check(len(body) > 5 and body[0] == 0, f"grpc-web reply without a DATA frame: {body[-200:]!r}")
+    n = int.from_bytes(body[1:5], "big")
+    return PP.decode_predict_response(body[5 : 5 + n])[0], body[5 + n :]
+
+
+def held_rel(name, got, want, rtol):
+    """|got - want| <= rtol * |want| + 1e-6 element-wise; returns the max
+    abs difference."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    d = np.abs(got - want)
+    check(got.shape == want.shape and bool((d <= rtol * np.abs(want) + 1e-6).all()),
+          f"{name}: max abs diff {float(d.max()) if d.size else 'shape'} (rtol {rtol})")
+    return float(d.max())
+
+
+def serving_k1(label, table, idx):
+    """K1 at a scorer's gather over the whole table: bit-exact against the
+    plain gather, its CUDA-event time beside the plain version's and
+    index_select's, and its bound: the ids, the distinct rows they read
+    and the output, each moved once."""
+    v, c = table.shape
+    check(torch.equal(SR.expand_rows(table, idx), SR.expand_rows_plain(table, idx)),
+          f"expand_rows (serving, {label}) differs from table[idx]")
+    n, rows = idx.shape[0], int(torch.unique(idx).numel())
+    nbytes = n * 4 + rows * c * 4 + n * c * 4
+    t = (cuda_ms(lambda: SR.expand_rows(table, idx)), cuda_ms(lambda: SR.expand_rows_plain(table, idx)),
+         cuda_ms(lambda: torch.index_select(table, 0, idx)))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"kernel expand_rows (serving, whole table, {label}): table [{v}, {c}] f32, N={n} ids, "
+        f"{rows} distinct rows: bit-exact  {t[0]:.4f} ms  plain {t[1]:.4f} ms  library "
+        f"(index_select) {t[2]:.4f} ms  bound {bound:.5f} ms (bytes: {nbytes / 1e6:.2f} MB; far "
+        f"under one launch's latency, so the launch, not the bytes, sets the time)")
+    return t, bound
+
+
+def deepfm_serving(dev, work):
+    """DeepFM at the bench width from the main path's checkpoint: export and
+    infer through the CLI, then the HTTP server on the card (REST at
+    every bucket size, the columnar form, grpc-web, ids outside [0, V)),
+    hot reload, and the per-bucket latency."""
+    data = os.path.join(work, "data")
+    v = WIDTH["feature_size"]
+    argv = [f"--{k}={val}" for k, val in WIDTH.items()] + [
+        f"--data_dir={data}", f"--model_dir={work}/model/", "--dt_dir=smoke",
+        f"--device={dev.type}", "--seed=2018"]
+    t0 = time.perf_counter()
+    vdir = cli.main(["--task_type=export", *argv])
+    servable = os.path.dirname(vdir)
+    te = os.path.join(data, "te.libsvm")
+    write_synthetic_libsvm(te, B, v, seed=5, zipf_a=1.2)
+    SR.reset_launches()
+    pred_path = cli.main(["--task_type=infer", *argv])
+    infer_launches = SR.expand_rows.launches
+    preds = np.loadtxt(pred_path)
+    log(f"serving DeepFM: export to {vdir} and infer of {preds.shape[0]} te rows in "
+        f"{time.perf_counter() - t0:.1f} s; infer launched expand_rows {infer_launches} times")
+    check(preds.shape == (B,) and bool(np.isfinite(preds).all()), f"pred.txt shape {preds.shape}")
+    check(infer_launches >= 1, "expand_rows was not launched by task_type=infer")
+    tb = next(iter(LibsvmDataset([te], field_size=WIDTH["field_size"], batch_size=B)))
+    rows = [{"feat_ids": tb["feat_ids"][i], "feat_vals": tb["feat_vals"][i]} for i in range(B)]
+
+    srv = PredictionServer(servable, port=0, grpc_port=-1, reload_secs=0, device=dev.type)
+    srv.start()
+    try:
+        card = srv.scorer
+        cpu = Scorer(servable, warmup=False, device="cpu")
+        url = "/v1/models/DeepFM:predict"
+        wild = [dict(rows[0], feat_ids=rows[0]["feat_ids"].copy()) for _ in range(3)]
+        for i, bad in enumerate((-1, v, 2**31 - 1)):
+            wild[i]["feat_ids"][STATIC + i::4] = bad
+        sent = [(f"REST {n}", rows[:n]) for n in SERVE_BUCKETS] + [
+            ("REST columnar 8", rows[8:16]), ("grpc-web 8", rows[16:24]),
+            ("REST ids -1, V, 2**31-1", wild)]
+        # the server's run: launch counts zeroed just before, read just after
+        n0 = len(srv.batcher.timings)
+        SR.reset_launches()
+        replies = {}
+        for name, inst in sent:
+            if name.startswith("grpc-web"):
+                out, trailer = grpc_web_predict(srv.port, inst, "DeepFM")
+                check(b"grpc-status: 0" in trailer, f"grpc-web trailer {trailer!r}")
+                replies[name] = out["prob"]
+            elif "columnar" in name:
+                cols = {k: [np.asarray(i[k]).tolist() for i in inst] for k in inst[0]}
+                replies[name] = np.asarray(http_json(srv.port, url, {"inputs": cols})["predictions"])
+            else:
+                replies[name] = np.asarray(http_json(srv.port, url, {"instances": json_instances(inst)})
+                                           ["predictions"])
+        launches = SR.expand_rows.launches
+        batches = len(srv.batcher.timings) - n0
+        log(f"serving DeepFM server: {len(sent)} requests in {batches} scored batches, "
+            f"expand_rows launched {launches} times")
+        check(launches >= batches >= 1, f"expand_rows launched {launches} times for {batches} "
+                                        "scored batches: K1 is not on the serving path")
+        worst_cpu = 0.0
+        for name, inst in sent:
+            want = card.score(inst)["prob"]
+            check(np.array_equal(np.asarray(replies[name], np.float32), want),
+                  f"{name}: the server's reply differs from Scorer.score on the card")
+            worst_cpu = max(worst_cpu, held_rel(f"{name} card vs CPU scorer", want,
+                                                cpu.score(inst)["prob"], 2e-2))
+        log(f"serving DeepFM replies: every reply equals Scorer.score on the card; card vs CPU "
+            f"scorer max abs diff {worst_cpu:.3e} (bf16 towers, held at 2e-2)")
+        e_inf = held_rel("pred.txt vs the card scorer", preds, card.score(rows)["prob"], 2e-2)
+        log(f"serving DeepFM infer: pred.txt ({B} rows, batch {B}) vs the card scorer (buckets of "
+            f"512) max abs diff {e_inf:.3e} (bf16 towers at another batch size, held at 2e-2)")
+        stats = http_json(srv.port, "/stats")
+        check(stats.get("count", 0) >= batches, f"/stats {stats}")
+
+        # hot reload: a second export, then maybe_reload switches the version
+        v0 = card.version
+        while int(time.time()) <= int(v0):
+            time.sleep(0.05)
+        cli.main(["--task_type=export", *argv])
+        check(card.maybe_reload() and card.version != v0, "hot reload did not switch the version")
+        resp = http_json(srv.port, url, {"instances": json_instances(rows[:8])})
+        check(resp["model_version"] == card.version and
+              np.array_equal(np.asarray(resp["predictions"], np.float32), replies["REST 8"]),
+              "the reloaded servable answers another version or other values")
+        log(f"serving DeepFM hot reload: version {v0} -> {card.version}, same answers")
+
+        # latency: LAT_CALLS scorer calls per bucket, HTTP round trips of one client
+        lat = {}
+        for b in SERVE_BUCKETS:
+            rec = []
+            for _ in range(LAT_CALLS):
+                t1 = time.perf_counter()
+                card.score(rows[:b])
+                rec.append((card.last_timing["batchify_ms"], card.last_timing["device_ms"],
+                            (time.perf_counter() - t1) * 1e3))
+            r = np.asarray(rec)
+            lat[b] = [pcts(r[:, j]) for j in range(3)]
+            log(f"serving latency DeepFM bucket {b} ({LAT_CALLS} scorer calls): batchify p50 "
+                f"{lat[b][0][0]:.3f} p99 {lat[b][0][1]:.3f} ms; device p50 {lat[b][1][0]:.3f} p99 "
+                f"{lat[b][1][1]:.3f} ms; score p50 {lat[b][2][0]:.3f} p99 {lat[b][2][1]:.3f} ms")
+        for n in (1, 64):
+            # the same request through the micro-batcher alone (its
+            # max_wait_ms window and the scorer), then over HTTP
+            body, sub, ts = {"instances": json_instances(rows[:n])}, [], []
+            for _ in range(LAT_CALLS):
+                t1 = time.perf_counter()
+                srv.batcher.submit(rows[:n])
+                sub.append((time.perf_counter() - t1) * 1e3)
+            for _ in range(LAT_CALLS):
+                t1 = time.perf_counter()
+                http_json(srv.port, url, body)
+                ts.append((time.perf_counter() - t1) * 1e3)
+            score = [r["score_ms"] for r in srv.batcher.timings[-LAT_CALLS:]]
+            (p50, p99), (s50, s99), (b50, b99) = pcts(ts), pcts(sub), pcts(score)
+            log(f"serving latency DeepFM HTTP round trip, {n} instance(s), one sequential client "
+                f"({LAT_CALLS} requests): p50 {p50:.3f} p99 {p99:.3f} ms; the server's score_ms "
+                f"of those batches p50 {b50:.3f} p99 {b99:.3f} ms; the same request through the "
+                f"micro-batcher alone (no HTTP) p50 {s50:.3f} p99 {s99:.3f} ms")
+
+        # K1 at the bucket-512 gather: the 26 dynamic fields of 512 rows
+        ids = torch.from_numpy(np.stack([r["feat_ids"][STATIC:] for r in rows[:512]])).to(dev)
+        idx = SR.normalize_ids(ids.reshape(-1), v).to(torch.int32).contiguous()
+        table = card.params["fm_wv"]
+        wild_idx = SR.normalize_ids(torch.tensor([-1, v, 2**31 - 1, -(2**31), 5], device=dev), v)
+        check(torch.equal(SR.expand_rows(table, wild_idx.to(torch.int32)),
+                          table[torch.tensor([v - 1, v - 1, v - 1, 0, 5], device=dev)]),
+              "the serving lookup's normalised ids read other rows than JAX's gather")
+        t, bound = serving_k1("DeepFM bucket 512", table, idx)
+    finally:
+        srv.stop()
+    return t, bound, launches
+
+
+def aliccp_serving(dev, work, label, width, model_dir):
+    """ESMM or DIN at the published Ali-CCP point from its CLI model_dir:
+    export, then one bucket of 64 va lines through the card's scorer,
+    held to a CPU scorer over the same servable."""
+    argv = [f"--{k}={val}" for k, val in width.items()] + [
+        f"--data_dir={work}/esmm_data", f"--model_dir={work}/{model_dir}/", "--dt_dir=smoke",
+        f"--device={dev.type}", "--seed=2018"]
+    t0 = time.perf_counter()
+    servable = os.path.dirname(cli.main(["--task_type=export", *argv]))
+    t_export = time.perf_counter() - t0
+    card = Scorer(servable, batch_buckets=(64,), device=dev.type)
+    cpu = Scorer(servable, batch_buckets=(64,), warmup=False, device="cpu")
+    with open(os.path.join(work, "esmm_data", "va.samples.txt"), "rb") as f:
+        lines = [next(f) for _ in range(64)]
+    batch = parse_aliccp_lines(lines, width["multi_hot_pad"])
+    inst = [{k: batch[k][i] for k in card.signature["inputs"]} for i in range(64)]
+    SR.reset_launches()
+    got = card.score(inst)
+    launches = SR.expand_rows.launches
+    check(launches >= 1, f"{label}: expand_rows was not launched by the scorer")
+    want = cpu.score(inst)
+    err = max(held_rel(f"{label} card vs CPU scorer {k}", got[k], want[k], 2e-2) for k in want)
+    log(f"serving {label}: export in {t_export:.1f} s; one bucket of 64 va lines, outputs "
+        f"{sorted(got)}, expand_rows launched {launches} time(s); card vs CPU scorer max abs "
+        f"diff {err:.3e} (bf16 towers, held at 2e-2); card device_ms "
+        f"{card.last_timing['device_ms']:.3f}")
+    # the model's one padded gather: the common, user, scalar ad and a_int ids
+    keys = ["feat_ids", "u_catids", "u_shopids", "u_brandids", "u_intids", "a_catids",
+            "a_shopids", "a_brandids", "a_intids"]
+    ids = np.concatenate([batch[k].reshape(64, -1) for k in keys], axis=1).reshape(-1)
+    table = card.params["emb"]
+    idx = SR.normalize_ids(torch.from_numpy(ids).to(dev), table.shape[0]).to(torch.int32).contiguous()
+    t, bound = serving_k1(f"{label} bucket 64", table, idx)
+    del card, cpu
+    torch.cuda.empty_cache()
+    return t, bound, launches
+
+
+def serving_phase(dev, work):
+    """Serving on the card (phase 4b): DeepFM through the HTTP server, ESMM
+    and DIN through the scorer. Returns the kernel report's phase and
+    launch counts for the serving entries of K1."""
+    t0 = time.perf_counter()
+    names = {"DeepFM": "expand_rows (serving, whole table, DeepFM)",
+             "ESMM": "expand_rows (serving, whole table, ESMM)",
+             "DIN": "expand_rows (serving, whole table, DIN)"}
+    res = {"DeepFM": deepfm_serving(dev, work),
+           "ESMM": aliccp_serving(dev, work, "ESMM", ESMM_WIDTH, "esmm_model"),
+           "DIN": aliccp_serving(dev, work, "DIN", DIN_WIDTH, "din_model")}
+    log(f"serving phase: {time.perf_counter() - t0:.1f} s")
+    phase = {"t": {names[m]: r[0] for m, r in res.items()},
+             "bound": {names[m]: r[1] for m, r in res.items()}, "bound_by": "bytes",
+             "err": {names[m]: 0.0 for m in res}}
+    return phase, {names[m]: r[2] for m, r in res.items()}
+
+
 def din_bare_step(dev, profile, sorted_bwd, dma_scatter=False):
     """The bare DIN --mh_coo sparse step on pre-mapped batches already on
     the card. profile: None, or the trace path ("" for none)."""
@@ -1467,6 +1741,7 @@ def main() -> int:
         elaunches = esmm_main_path(dev, work)
         dlaunches = din_main_path(dev, work)
         flaunches = field_block_main_path(dev, work)
+        serve_kp, serve_launches = serving_phase(dev, work)
         bare = bare_steps(dev, profile)
         ebare = esmm_bare_step(dev, profile)
         dbare = {sb: din_bare_step(dev, profile, sb) for sb in (False, True)}
@@ -1500,7 +1775,8 @@ def main() -> int:
         ("dma_row_scatter", "row_scatter.cu", "tf_repos_tpu/ops/pallas_sparse.py:1472", skp, elaunches),
         ("field_block_scatter", "field_block.cu", "tf_repos_tpu/ops/pallas_embedding.py:103", fkp,
          flaunches),
-    ]
+    ] + [(name, "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164", serve_kp, serve_launches)
+         for name in serve_launches]
     report = []
     for name, src, replaces, phase, counts in kernels:
         ms, plain, lib = phase["t"][name]

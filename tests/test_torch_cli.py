@@ -1,18 +1,33 @@
 """The port's entry point, ``tf_repos_tpu_torch.main``, on tiny synthetic
-libsvm data on the CPU; its refusal of flags it does not implement; and
-its refusal to run on the CPU unless asked. Also the port's copies of the
-synthetic writer and the libsvm reader against the JAX package's."""
+libsvm data on the CPU: train and eval, then infer (pred.txt against the
+JAX package's on the same data and weights, 2e-5), export and eval_loop;
+its refusal of flags it does not implement; and its refusal to run on
+the CPU unless asked. Also the port's copies of the synthetic writer and
+the libsvm reader against the JAX package's."""
 
+import json
+import os
+import shutil
+
+import jax
 import numpy as np
 import pytest
 import torch
 
+from tf_repos_tpu.config import Config as JaxConfig
 from tf_repos_tpu.data import libsvm as JL
 from tf_repos_tpu.data.synthetic import write_synthetic_libsvm as jax_write
+from tf_repos_tpu.train.harness import Harness as JaxHarness
 from tf_repos_tpu_torch import main as M
+from tf_repos_tpu_torch.config import parse_config
 from tf_repos_tpu_torch.data import libsvm as TL
-from tf_repos_tpu_torch.data.synthetic import write_synthetic_libsvm
+from tf_repos_tpu_torch.data.synthetic import write_synthetic_aliccp, write_synthetic_libsvm
 from tf_repos_tpu_torch.ops import sparse_rows as SR
+from tf_repos_tpu_torch.serve.scorer import Scorer
+from tf_repos_tpu_torch.train.checkpoint import CheckpointManager
+from tf_repos_tpu_torch.train.harness import Harness
+from tf_repos_tpu_torch.utils.convert import params_from_jax
+from tf_repos_tpu_torch.utils.tree import tree_leaves
 
 FLAGS = [
     "--model=DeepFM", "--feature_size=400", "--field_size=39",
@@ -57,14 +72,94 @@ def test_main_train_then_eval(tmp_path, data_dir, extra, capsys):
 
 @pytest.mark.parametrize(
     "flag",
-    ["--fused_moments=true", "--check_numerics=true", "--task_type=infer", "--slim_transfer=true",
+    ["--fused_moments=true", "--check_numerics=true", "--dist_mode=1", "--slim_transfer=true",
      "--packed_cache=true", "--profile_steps=2", "--mesh_model=2", "--param_dtype=bfloat16", "--map_workers=2",
-     "--task_type=export"],
+     "--mesh_data=2"],
 )
 def test_unsupported_flags_raise(tmp_path, data_dir, flag):
     with pytest.raises(NotImplementedError, match=flag.split("=")[0]):
         M.main([*FLAGS, f"--data_dir={data_dir}", f"--model_dir={tmp_path}/m/",
                 "--device=cpu", flag])
+
+
+# the DeepFM flags at the serving tests' width, and DIN's on Ali-CCP lines
+INFER = {
+    "DeepFM": [*FLAGS, "--sparse_table_update=true", "--fused_table=true", "--pallas_expand=true",
+               "--static_fields=13"],
+    "DIN": ["--model=DIN", "--feature_size=600", "--field_size=11", "--embedding_size=4",
+            "--deep_layers=8,4", "--attention_layers=8", "--dropout=1.0,1.0", "--batch_size=16",
+            "--multi_hot_pad=8", "--mh_bucket=pow2", "--sparse_table_update=true",
+            "--fused_table=true", "--pallas_expand=true", "--mh_coo=true"],
+}
+
+
+@pytest.mark.parametrize("model", ["DeepFM", "DIN"])
+def test_main_infer_matches_jax(tmp_path, data_dir, model):
+    """task_type=infer: the port's pred.txt (serving lookup over the
+    whole table) equals the JAX package's on the same te* lines and
+    weights: the JAX harness infers from its seed's init (no
+    checkpoint), the port from a checkpoint of those weights converted."""
+    data = tmp_path / "infer_data"
+    data.mkdir()
+    if model == "DeepFM":
+        shutil.copy(data_dir / "va.libsvm", data / "te.libsvm")
+    else:
+        write_synthetic_aliccp(str(data / "te.samples.txt"), 40, feature_size=600, seed=5)
+    argv = [*INFER[model], f"--data_dir={data}", f"--model_dir={tmp_path}/m/", "--dt_dir=x",
+            "--device=cpu"]
+    cfg = parse_config(argv)
+    jcfg = JaxConfig(**{k: v for k, v in vars(cfg).items() if k != "device"})
+    jh = JaxHarness(jcfg.replace(model_dir=f"{tmp_path}/jax/"))
+    jts = jh.init_train_state()
+    want_path = jh.infer(out_path=str(tmp_path / "jax_pred.txt"))
+    # the port's train state with the JAX weights copied in (into the
+    # fused store's [V, K] view for the table)
+    h = Harness(cfg)
+    state = h.init_train_state()
+    tp, tm = params_from_jax(jax.tree.map(np.asarray, jts["params"]),
+                             jax.tree.map(np.asarray, jts["mstate"]))
+    for dst, src in zip(tree_leaves(state["params"]), tree_leaves(tp)):
+        dst.copy_(src)
+    state["mstate"] = tm
+    CheckpointManager(h.model_dir).save(0, state)
+    SR.reset_launches()
+    got_path = M.main(["--task_type=infer", *argv])
+    assert got_path == str(data / "pred.txt")
+    assert SR.expand_rows.launches == 0  # the plain version on the CPU
+    got = np.loadtxt(got_path)
+    want = np.loadtxt(want_path)
+    assert got.shape == want.shape == (64 if model == "DeepFM" else 40,)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)  # pred.txt's 6 decimals
+
+
+def test_main_export_and_eval_loop(tmp_path, data_dir):
+    common = [*FLAGS, f"--data_dir={data_dir}", f"--model_dir={tmp_path}/m/", "--dt_dir=x",
+              "--device=cpu", "--sparse_table_update=true", "--fused_table=true",
+              "--static_fields=13"]
+    res = M.main(["--task_type=train", *common])
+    version_dir = M.main(["--task_type=export", *common])
+    assert os.path.dirname(version_dir) == f"{tmp_path}/m/x/servable"
+    assert {"saved_model.json", "variables.npz"} <= set(os.listdir(version_dir))
+    s = Scorer(os.path.dirname(version_dir), batch_buckets=(8,), warmup=False, device="cpu")
+    assert s.version == os.path.basename(version_dir)
+    rows = next(iter(TL.LibsvmDataset([str(data_dir / "va.libsvm")], field_size=39, batch_size=8)))
+    probs = s.score([{"feat_ids": rows["feat_ids"][i], "feat_vals": rows["feat_vals"][i]}
+                     for i in range(8)])["prob"]
+    assert probs.shape == (8,) and np.all((probs > 0) & (probs < 1))
+    # the evaluator evaluates the newest checkpoint once, then times out
+    ev = M.main(["--task_type=eval_loop", "--eval_loop_secs=1", "--eval_loop_timeout=2", *common])
+    assert ev["step"] == res["step"]
+    assert ev["loss"] == pytest.approx(res["loss"], rel=1e-6)
+    assert ev["auc"] == pytest.approx(res["auc"], rel=1e-6)
+    recs = [json.loads(line) for line in open(f"{tmp_path}/m/x/eval_metrics.jsonl")]
+    assert [(r["step"], r["kind"]) for r in recs] == [(res["step"], "eval")]
+    assert recs[0]["loss"] == pytest.approx(res["loss"], rel=1e-6)
+
+
+def test_unknown_task_type_raises(tmp_path, data_dir):
+    with pytest.raises(ValueError, match="unknown task_type"):
+        M.main([*FLAGS, f"--data_dir={data_dir}", f"--model_dir={tmp_path}/m/", "--device=cpu",
+                "--task_type=serve"])
 
 
 def test_no_cuda_raises_instead_of_running_on_cpu(tmp_path, data_dir):

@@ -8,17 +8,23 @@ Tolerances as in chip_smoke.py: expand, the sorted select and the row
 scatter are bit-exact; accumulate adds with atomics in run-to-run order,
 held to 1e-4 of sum_i |g_i| per element; the COO pool, its transpose,
 the sorted segment sum and the field-block scatter likewise, to 1e-4 of
-sum_i |w_i x_i| (or |v_i|, |g_i|) per element, plus 1e-6."""
+sum_i |w_i x_i| (or |v_i|, |g_i|) per element, plus 1e-6. The serving
+lookup is bit-exact against the plain gather on normalised ids; the
+card's scorer is held to the CPU's at the bf16-tower bar, 2e-2."""
 
 import numpy as np
 import pytest
 import torch
 
+from tf_repos_tpu_torch.config import Config
+from tf_repos_tpu_torch.models import create_model
 from tf_repos_tpu_torch.ops import coo_pool as CP
 from tf_repos_tpu_torch.ops import field_block as FB
 from tf_repos_tpu_torch.ops import row_scatter as RS
 from tf_repos_tpu_torch.ops import sorted_seg as SG
 from tf_repos_tpu_torch.ops import sparse_rows as SR
+from tf_repos_tpu_torch.serve.export import export_servable
+from tf_repos_tpu_torch.serve.scorer import Scorer
 from tf_repos_tpu_torch.train import sparse as SP
 
 pytestmark = pytest.mark.cuda
@@ -532,3 +538,59 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         FB.field_block_scatter(ids, g.double(), 10, (0, 5), (5, 5))
     with pytest.raises(ValueError, match="offsets"):
         FB.field_block_scatter(ids, g, 10, (0,), (5,))
+
+
+# ------------------------------------------------------------------ serving
+def _wild_ids(v, shape, seed=0):
+    """Ids in [-2v, 2v) with the extremes: -1, v, 2**31 - 1, -2**31."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-2 * v, 2 * v, size=shape)
+    ids.reshape(-1)[:6] = [-1, v, 2**31 - 1, -(2**31), -v, v - 1]
+    return ids
+
+
+@pytest.mark.parametrize("v,c,view", [(117_581, 17, False), (4_500_000, 16, False),
+                                      (300, 17, True), (5_000, 16, True)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_serving_lookup_bit_exact_on_whole_table(dev, v, c, view, dtype):
+    """The serving lookup over a whole [V, C] table (or a fused store's
+    [V, C] view) with ids from outside [0, V): one K1 launch, bit-exact
+    against the plain gather on normalised ids and against the CPU's
+    lookup."""
+    if view:
+        table = torch.randn((v + 1, 3 * c), device=dev)[:-1, :c]
+    else:
+        table = torch.randn((v, c), device=dev)
+    ids = torch.from_numpy(_wild_ids(v, (512, 26))).to(dtype).to(dev)
+    lookup = SR.make_serving_lookup()
+    before = SR.expand_rows.launches
+    got = lookup(table, ids)
+    torch.cuda.synchronize()
+    assert SR.expand_rows.launches == before + 1
+    assert got.shape == (512, 26, c)
+    want = SR.expand_rows_plain(table, SR.normalize_ids(ids.reshape(-1), v)).reshape(512, 26, c)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), lookup(table.cpu(), ids.cpu()))
+
+
+def test_scorer_on_card_matches_cpu(dev, tmp_path):
+    """One DeepFM bucket at the bench width (bf16 towers), ids from
+    outside [0, V) included: the card's scorer (K1) within 2e-2 of the
+    CPU's (plain gather)."""
+    cfg = Config(model="DeepFM", feature_size=117_581, field_size=39, embedding_size=16,
+                 deep_layers="256,128,64", dropout="1.0,1.0,1.0", static_fields=13,
+                 compute_dtype="bfloat16", device="cpu")
+    model = create_model(cfg)
+    params, mstate = model.init(torch.Generator().manual_seed(0))
+    export_servable(str(tmp_path), model, params, mstate)
+    card = Scorer(str(tmp_path), batch_buckets=(64,), device="cuda")  # warmup launches K1
+    cpu = Scorer(str(tmp_path), batch_buckets=(64,), warmup=False, device="cpu")
+    ids = _wild_ids(cfg.feature_size, (64, 39), seed=1)
+    ids[:, :13] = np.arange(1, 14)
+    vals = np.random.default_rng(2).random((64, 39)).astype(np.float32)
+    inst = [{"feat_ids": ids[i], "feat_vals": vals[i]} for i in range(64)]
+    before = SR.expand_rows.launches
+    got = card.score(inst)["prob"]
+    assert SR.expand_rows.launches == before + 1
+    assert card.last_timing["bucket"] == 64
+    np.testing.assert_allclose(got, cpu.score(inst)["prob"], rtol=2e-2, atol=1e-6)

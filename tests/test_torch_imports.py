@@ -49,6 +49,8 @@ def test_modules_listed():
     assert "tf_repos_tpu_torch.models.din" in mods
     assert "tf_repos_tpu_torch.data.ragged" in mods
     assert "tf_repos_tpu_torch.train.harness" in mods
+    assert "tf_repos_tpu_torch.serve.server" in mods
+    assert "tf_repos_tpu_torch.serve.export" in mods
     assert len(mods) >= 20
 
 

@@ -174,3 +174,33 @@ def make_expand_lookup():
     lookup.seg_pool, lookup.seg_select = make_sorted_seg()
     lookup.sorted_bwd_expand = make_sorted_bwd_expand()
     return lookup
+
+
+# ------------------------------------------------------------ serving lookup
+def normalize_ids(ids: torch.Tensor, v: int) -> torch.Tensor:
+    """The row a gather ``table[ids]`` of a [v, ...] table reads in JAX,
+    which never fails on an id: a negative id gets v added once, then the
+    id is clamped to [0, v-1] (v = 5: ids 4, 5, 99, -1, -6, -100 read
+    rows 4, 4, 4, 4, 0, 0). Same dtype and shape as ids."""
+    return torch.where(ids < 0, ids + v, ids).clamp_(0, v - 1)
+
+
+def make_serving_lookup():
+    """lookup(table, ids) for scoring over a WHOLE [V, C] table: the
+    scorer's and task_type=infer's gather, through K1 expand_rows.
+    Request ids are untrusted and K1 checks no bounds, so the ids are
+    first normalised as JAX's gather treats them (normalize_ids; V is
+    table.shape[0] of the table passed in, the [V, K] view under
+    --fused_table), then flattened to contiguous int32. Only the gather
+    sees the normalised ids; a model's other uses of its ids (masks) see
+    them as sent. No autograd: forward only. Marked ``static_slice_ok``:
+    a whole table is addressed by position, so DeepFM's static fields
+    still come from the row slice."""
+
+    @torch.no_grad()
+    def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        flat = normalize_ids(ids.reshape(-1), table.shape[0]).to(torch.int32).contiguous()
+        return expand_rows(table, flat).reshape(tuple(ids.shape) + (table.shape[-1],))
+
+    lookup.static_slice_ok = True
+    return lookup

@@ -1,10 +1,17 @@
-"""Trainer harness (counterpart of the JAX package's train/harness.py) for
-task_type=train and eval on one device: DeepFM on libsvm, ESMM and DIN on
-Ali-CCP sample lines.
+"""Trainer harness (counterpart of the JAX package's train/harness.py) on
+one device: DeepFM on libsvm, ESMM and DIN on Ali-CCP sample lines.
 
-  train -> train loop with periodic eval (eval_throttle_secs), checkpoints
-           (torch.save under model_dir), a final eval on the va* split
-  eval  -> one eval pass over the va* files from the newest checkpoint
+  train     -> train loop with periodic eval (eval_throttle_secs),
+               checkpoints (torch.save under model_dir), a final eval on
+               the va* split
+  eval      -> one eval pass over the va* files from the newest checkpoint
+  eval_loop -> poll model_dir for new checkpoints and evaluate each
+               (eval_loop_secs, eval_loop_timeout; eval_metrics.jsonl
+               under --write_metrics)
+  infer     -> pred.txt from the te* files with the predict step and the
+               serving lookup (K1 over the whole table); one process
+  export    -> a versioned servable (serve/export.py) under
+               servable_model_dir or <model_dir>/servable
 
 The step is the lazy sparse step (train/sparse.py) under
 --sparse_table_update, with the hand-written expand/accumulate kernels
@@ -15,10 +22,10 @@ Under --mh_coo the training batches' multi-hot fields are packed into a
 COO triplet on the host (data/sparse_batch.MhCooPacker, before the dedup
 mapper), which the COO pool kernels consume (ESMM), or the sorted-stream
 kernels with the packer's compact segment stream (DIN attention; with
---coo_sorted_bwd also its idx-sorted stream); eval batches stay padded.
---mh_bucket slices the padded multi-hot fields of every split to the
-batch's live width first. --steps_per_dispatch K runs as a plain loop of
-K steps. Flags whose code path the port does not have yet
+--coo_sorted_bwd also its idx-sorted stream); eval and infer batches
+stay padded. --mh_bucket slices the padded multi-hot fields of every
+split to the batch's live width first. --steps_per_dispatch K runs as a
+plain loop of K steps. Flags whose code path the port does not have yet
 (check_supported) raise NotImplementedError by name."""
 
 from __future__ import annotations
@@ -65,7 +72,6 @@ def check_supported(cfg: Config) -> None:
         "--map_workers>1": cfg.map_workers > 1,
         "--profile_steps": cfg.profile_steps > 0,
         "--check_numerics": cfg.check_numerics,
-        f"--task_type={cfg.task_type}": cfg.task_type not in ("train", "eval"),
     }
     bad = [name for name, hit in unsupported.items() if hit]
     if bad:
@@ -135,12 +141,12 @@ class GracefulStop:
 
 
 class MetricsWriter:
-    """Append-only JSONL scalar events in model_dir: {"step", "wall",
-    "kind", <scalars>}."""
+    """Append-only JSONL scalar events in model_dir/filename: {"step",
+    "wall", "kind", <scalars>}."""
 
-    def __init__(self, model_dir: str):
+    def __init__(self, model_dir: str, filename: str = "metrics.jsonl"):
         os.makedirs(model_dir, exist_ok=True)
-        self._f = open(os.path.join(model_dir, "metrics.jsonl"), "a", buffering=1)
+        self._f = open(os.path.join(model_dir, filename), "a", buffering=1)
 
     def write(self, step: int, scalars: Dict[str, float], kind: str = "train") -> None:
         rec = {"step": int(step), "wall": time.time(), "kind": kind}
@@ -391,17 +397,77 @@ class Harness:
         print("INFO: eval:", " ".join(f"{k} = {v:.6f}" for k, v in res.items()))
         return res
 
+    def _restore(self) -> Dict[str, Any]:
+        return self.restore_or_init(CheckpointManager(self.model_dir, keep=self.cfg.keep_checkpoint_max))
+
     def evaluate(self) -> Dict[str, float]:
-        ts = self.restore_or_init(CheckpointManager(self.model_dir, keep=self.cfg.keep_checkpoint_max))
+        ts = self._restore()
         return self._run_eval(ts["params"], ts["mstate"])
 
+    def evaluate_loop(self) -> Dict[str, float]:
+        """Continuous evaluator: poll model_dir for new checkpoints and
+        evaluate each, until none has appeared for eval_loop_timeout
+        seconds (the reference's dedicated evaluator role)."""
+        cfg = self.cfg
+        writer = MetricsWriter(self.model_dir, filename="eval_metrics.jsonl") if cfg.write_metrics else None
+        ckpt = CheckpointManager(self.model_dir, keep=cfg.keep_checkpoint_max)
+        last_step = None
+        last_new = time.time()
+        metrics: Dict[str, float] = {}
+        while time.time() - last_new < cfg.eval_loop_timeout:
+            step = ckpt.latest_step()
+            if step is not None and step != last_step:
+                ts = self.restore_or_init(ckpt)
+                metrics = self._run_eval(ts["params"], ts["mstate"])
+                metrics["step"] = step
+                if writer:
+                    writer.write(step, {k: v for k, v in metrics.items() if k != "step"}, kind="eval")
+                last_step, last_new = step, time.time()
+            else:
+                time.sleep(cfg.eval_loop_secs)
+        if writer:
+            writer.close()
+        return metrics
 
-def run_task(cfg: Config) -> Dict[str, float]:
+    # ----------------------------------------------------------------- infer
+    def infer(self, out_path: Optional[str] = None) -> str:
+        """Predict over the te* files -> pred.txt (one probability of the
+        model's first prediction key a line, padding rows skipped), with
+        the predict step and the serving lookup: K1 over the whole table
+        on the card, the ids normalised as JAX's gather treats them. One
+        process; the multi-process form waits for the multi-GPU port."""
+        from tf_repos_tpu_torch.ops.sparse_rows import make_serving_lookup
+
+        ts = self._restore()
+        predict_step = L.build_predict_step(self.model, lookup=make_serving_lookup())
+        out_path = out_path or os.path.join(self.cfg.data_dir, "pred.txt")
+        key = self.model.prediction_keys[0]
+        with open(out_path, "w") as f:
+            for batch in self._dataset("te", shuffle=False, epochs=1):
+                preds = predict_step(ts["params"], ts["mstate"], to_device(batch, self.device))[key]
+                for p, m in zip(preds.cpu().numpy(), batch["mask"]):
+                    if m > 0:
+                        f.write(f"{p:f}\n")
+        return out_path
+
+    # ---------------------------------------------------------------- export
+    def export(self) -> str:
+        from tf_repos_tpu_torch.serve.export import export_servable
+
+        cfg = self.cfg
+        ts = self._restore()
+        return export_servable(cfg.servable_model_dir or os.path.join(self.model_dir, "servable"),
+                               self.model, ts["params"], ts["mstate"])
+
+
+def run_task(cfg: Config) -> Dict[str, float] | str:
     """CLI entry: task_type dispatch."""
     echo_config(cfg)
     h = Harness(cfg)
     if cfg.clear_existing_model and cfg.task_type == "train":
         clear_existing_model(cfg.resolved_model_dir())
-    if cfg.task_type == "train":
-        return h.train()
-    return h.evaluate()
+    tasks = {"train": h.train, "eval": h.evaluate, "eval_loop": h.evaluate_loop,
+             "infer": h.infer, "export": h.export}
+    if cfg.task_type not in tasks:
+        raise ValueError(f"unknown task_type {cfg.task_type!r}")
+    return tasks[cfg.task_type]()

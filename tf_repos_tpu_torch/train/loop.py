@@ -80,10 +80,15 @@ def finalize_eval(acc) -> Dict[str, float]:
     return res
 
 
-def build_predict_step(model: CtrModel):
+def build_predict_step(model: CtrModel, lookup=None):
+    """(params, mstate, batch) -> {prediction key: [B]}; ``lookup``
+    defaults to the plain gather (ops/sparse_rows.make_serving_lookup()
+    is the scorer's and infer's)."""
+    lookup = lookup or dense_lookup
+
     @torch.no_grad()
     def step(params, mstate, batch):
-        out, _ = model.apply(params, mstate, batch, train=False)
+        out, _ = model.apply(params, mstate, batch, train=False, lookup=lookup)
         return {k: out[k] for k in model.prediction_keys}
 
     return step

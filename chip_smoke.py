@@ -73,16 +73,33 @@ result line):
         one-row fields (field_block_reductions), and its time with every
         id -1, where it adds nothing;
   4. the main paths: ``tf_repos_tpu_torch.main`` --task_type=train at
-     full width, DeepFM for >= 20 steps on synthetic Zipf libsvm data,
-     ESMM (the whole cell esmm_coo_dma_combine: K7 once a step) for >= 10
-     steps on Ali-CCP lines from the port's writer, DIN for >= 10 steps
-     on the same lines, then DIN --task_type=eval, then DIN with
-     --coo_sorted_bwd (K5 three times a step), then DeepFM's dense step
+     full width on the native host input (C++ parsers and duplicate
+     combine, data/native.py), DeepFM for >= 20 steps on synthetic Zipf
+     libsvm data (the blob parser on its thread pool), ESMM (the whole
+     cell esmm_coo_dma_combine: K7 once a step) for >= 10 steps on
+     Ali-CCP lines from the port's writer with --map_workers=2
+     --packed_cache=true, three times: the run that parses and writes
+     the cache, a second that must only read it (sidecars present, none
+     rewritten), and --map_workers=1 on the cache, whose eval and last
+     train loss must match the second run's within 1e-4 relative; DIN
+     for >= 10 steps on the same lines, then DIN --task_type=eval, then
+     DIN with --coo_sorted_bwd --map_workers=2 (K5 three times a step),
+     whose eval and last train loss must match the same leg's with
+     --map_workers=1 within 1e-4 relative, then DeepFM's dense step
      with --field_blocks for >= 20 steps on per-field-block libsvm data
-     (K8 once a step); each kernel of the path must have launched; then
+     (K8 once a step); each kernel of the path must have launched; each
+     run's CLI examples/s from the creation of its training input to
+     its last ``INFO: step`` line (StepClock), and the examples/s of
+     that input alone (host_rate); before them, the host input's stages
+     on this host, one batch each (DeepFM: the Python and the native libsvm
+     parse of 16,384 lines, which must agree; ESMM: the Python and the
+     native Ali-CCP parse of 4,096 lines, bit-equal, the packer with the
+     np.unique and the native combine, equal streams, and the mapper)
+     and the pad --multi_hot_pad=0 would pick for the ESMM lines; then
      each bare step timed on pre-mapped batches (DeepFM sparse, with
      catch-up, dense, dense with --field_blocks; ESMM; DIN, with
-     --coo_sorted_bwd, with --dma_scatter);
+     --coo_sorted_bwd, with --dma_scatter), and each CLI leg's examples/s
+     beside its bare step's;
   5. 5-step trajectories with f32 towers on the card (kernels) against
      the same steps on the CPU (plain versions), same weights and
      batches: DeepFM at B=1024, ESMM --dma_scatter and DIN (both DIN
@@ -103,7 +120,7 @@ result line):
      scorer calls each) and HTTP round trips; ESMM and DIN exported and
      scored (one bucket of 64 va lines) by the card's and a CPU scorer;
      K1 at each scorer's gather over the whole table, bit-exact, timed
-     beside index_select;
+     beside index_select and an empty launch (torch.cuda._sleep(0));
 then the kernel report line and, last, the device line.
 """
 
@@ -125,9 +142,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from tf_repos_tpu_torch import main as cli  # noqa: E402
-from tf_repos_tpu_torch.config import Config  # noqa: E402
-from tf_repos_tpu_torch.data.libsvm import LibsvmDataset  # noqa: E402
-from tf_repos_tpu_torch.data.ragged import MH_PAIRS, parse_aliccp_lines  # noqa: E402
+from tf_repos_tpu_torch.config import Config, parse_config  # noqa: E402
+from tf_repos_tpu_torch.data import native  # noqa: E402
+from tf_repos_tpu_torch.data.libsvm import LibsvmDataset, parse_libsvm_lines  # noqa: E402
+from tf_repos_tpu_torch.data.ragged import (  # noqa: E402
+    MH_PAIRS,
+    auto_multi_hot_pad,
+    parse_aliccp_lines,
+)
 from tf_repos_tpu_torch.data.sparse_batch import (  # noqa: E402
     MHC_CDEST,
     MHC_CIDX,
@@ -160,7 +182,7 @@ from tf_repos_tpu_torch.serve.scorer import Scorer  # noqa: E402
 from tf_repos_tpu_torch.serve.server import PredictionServer  # noqa: E402
 from tf_repos_tpu_torch.train import loop as L  # noqa: E402
 from tf_repos_tpu_torch.train import sparse as SP  # noqa: E402
-from tf_repos_tpu_torch.train.harness import to_device  # noqa: E402
+from tf_repos_tpu_torch.train.harness import Harness, to_device  # noqa: E402
 from tf_repos_tpu_torch.train.optimizers import make_optimizer  # noqa: E402
 from tf_repos_tpu_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -244,6 +266,72 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class StepClock:
+    """Tees stdout during a CLI training run from step 0 and stamps each
+    ``INFO: step = N`` line with the host clock, and the moment the
+    harness creates its training input (``Harness._dataset("tr")``). The
+    run's examples/s: the steps of the last such line, times the batch,
+    over the time from the input's creation to that line, so that the
+    batches made before the first step are paid for (as in host_rate);
+    the model's set-up before it is left out."""
+
+    def __init__(self):
+        self.stamps = []
+        self.t0 = None
+
+    def __enter__(self):
+        self._out, sys.stdout = sys.stdout, self
+        self._dataset = Harness._dataset
+        clock = self
+
+        def stamped(h, split, **kw):
+            if split == "tr" and clock.t0 is None:
+                clock.t0 = time.perf_counter()
+            return clock._dataset(h, split, **kw)
+
+        Harness._dataset = stamped
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self._out
+        Harness._dataset = self._dataset
+
+    def write(self, s):
+        if s.startswith("INFO: step = "):
+            self.stamps.append((time.perf_counter(), int(s.split()[3].rstrip(","))))
+        return self._out.write(s)
+
+    def flush(self):
+        self._out.flush()
+
+    def ex_per_s(self, batch: int) -> float:
+        check(self.t0 is not None and len(self.stamps) >= 1,
+              f"no training input or no INFO: step line: {self.t0}, {self.stamps}")
+        t1, s1 = self.stamps[-1]
+        return s1 * batch / (t1 - self.t0)
+
+
+def host_rate(argv, batch: int) -> float:
+    """Examples/s of a CLI run's training input alone: the harness's
+    reader, map chain and prefetch thread for the argv's flags, iterated
+    for one epoch with no step, from the iterator's creation to its last
+    batch."""
+    h = Harness(parse_config(argv))
+    t0 = time.perf_counter()
+    n = sum(1 for _ in h._dataset("tr", shuffle=True, epochs=1))
+    return n * batch / (time.perf_counter() - t0)
+
+
+def best_s(fn, n: int = 3):
+    """(seconds of the fastest of n calls, the last call's result)."""
+    best, out = float("inf"), None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
 
 
 def longest_chain(idx: torch.Tensor, tile: int, live=None):
@@ -949,7 +1037,23 @@ def field_block_kernel_phase(dev):
 
 
 # ------------------------------------------------------------------ phase 4
-def main_path(dev, work):
+def deepfm_host_timings(path):
+    """The libsvm parse of one 16,384-line DeepFM batch on this host: the
+    plain Python parser and the native blob parser (one thread each),
+    which must agree (ids and labels exactly, values to 1e-6 relative)."""
+    with open(path, "rb") as f:
+        lines = [next(f) for _ in range(B)]
+    blob = b"".join(lines)
+    t_py, (ids, vals, labels) = best_s(lambda: parse_libsvm_lines(lines, WIDTH["field_size"]), 1)
+    t_nat, (n_ids, n_vals, n_labels) = best_s(lambda: native.parse_libsvm_blob(blob, WIDTH["field_size"]))
+    check(np.array_equal(ids, n_ids) and np.array_equal(labels, n_labels)
+          and np.allclose(vals, n_vals, rtol=1e-6, atol=0), "native libsvm parse differs from the plain one")
+    log(f"host input (os.cpu_count()={os.cpu_count()}), DeepFM, per {B}-line batch: Python parse "
+        f"{t_py * 1e3:.1f} ms, native blob parse {t_nat * 1e3:.2f} ms (one thread each; equal)")
+    return {"deepfm python parse ms": t_py * 1e3, "deepfm native parse ms": t_nat * 1e3}
+
+
+def main_path(dev, work, rates):
     data = os.path.join(work, "data")
     os.makedirs(data)
     t0 = time.perf_counter()
@@ -959,6 +1063,7 @@ def main_path(dev, work):
                            seed=2, zipf_a=1.2)
     log(f"main path data: {MAIN_STEPS * B} train + {B} valid rows written in "
         f"{time.perf_counter() - t0:.1f} s")
+    rates.update(deepfm_host_timings(os.path.join(data, "tr.libsvm")))
     argv = [f"--{k}={v}" for k, v in WIDTH.items()] + [
         "--task_type=train", "--num_epochs=1", "--log_steps=7", f"--data_dir={data}",
         f"--model_dir={work}/model/", "--dt_dir=smoke", "--eval_throttle_secs=0",
@@ -966,12 +1071,17 @@ def main_path(dev, work):
     ]
     SR.reset_launches()
     t0 = time.perf_counter()
-    res = cli.main(argv)
+    with StepClock() as clock:
+        res = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"expand_rows": SR.expand_rows.launches,
                 "accumulate_rows": SR.accumulate_rows.launches}
-    log(f"main path: {res['step']} steps in {wall:.1f} s wall, launches {launches}")
+    rates["DeepFM CLI"] = clock.ex_per_s(B)
+    rates["DeepFM CLI host"] = host_rate(argv, B)
+    log(f"main path: {res['step']} steps in {wall:.1f} s wall, launches {launches}; native blob "
+        f"parse on {max(1, min(16, (os.cpu_count() or 4) - 1))} threads; CLI "
+        f"{rates['DeepFM CLI']:.0f} examples/s; its input alone {rates['DeepFM CLI host']:.0f}")
     check(res["step"] >= 20, f"main path ran {res['step']} steps")
     check(math.isfinite(res["loss"]) and 0.0 <= res["auc"] <= 1.0, f"main path result {res}")
     for name, c in launches.items():
@@ -982,7 +1092,83 @@ def main_path(dev, work):
     return launches
 
 
-def esmm_main_path(dev, work):
+def esmm_host_timings(path):
+    """The host chain of one 4096-line ESMM batch on this host: the plain
+    Python and the native Ali-CCP parse (which must be bit-equal), the
+    COO packer with combine on the plain np.unique combine and on the
+    native one (the same streams in the same order, weights within
+    1e-5 relative: f64 sums against f32 ones), and the dedup mapper."""
+    p = ESMM_WIDTH["multi_hot_pad"]
+    with open(path, "rb") as f:
+        lines = [next(f) for _ in range(EB)]
+    model = create_model(Config(**ESMM_WIDTH))
+    t = {}
+    t["python parse"], plain = best_s(lambda: parse_aliccp_lines(lines, p), 1)
+    t["native parse"], batch = best_s(lambda: native.parse_aliccp_lines(lines, p))
+    check(plain.keys() == batch.keys() and all(np.array_equal(plain[k], batch[k]) for k in plain),
+          "native Ali-CCP parse differs from the plain one")
+    packed = {}
+    for name, nat in (("packer, np.unique combine", False), ("packer, native combine", True)):
+        packer = MhCooPacker(model.mh_coo_groups(), combine=True, use_native=nat)
+        t[name], packed[nat] = best_s(lambda: packer(dict(batch)))
+    a, b = packed[False], packed[True]
+    check(np.array_equal(a[MHC_IDX], b[MHC_IDX]) and np.array_equal(a[MHC_DEST], b[MHC_DEST])
+          and np.allclose(a[MHC_W], b[MHC_W], rtol=1e-5, atol=0),
+          "the packer's streams differ between the plain and the native combine")
+    mapper = SparseBatchMapper(model.sparse_slots())
+    t["mapper"], _ = best_s(lambda: mapper(dict(packed[True])))
+    log(f"host input (os.cpu_count()={os.cpu_count()}), ESMM, per {EB}-line batch at pad {p}: "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in t.items())
+        + f"; {int(b[MHC_CNT].sum())} live COO slots after the combine")
+    return {f"esmm {k} ms": v * 1e3 for k, v in t.items()}
+
+
+def esmm_cli(argv, label):
+    """One ESMM CLI run with the launch counters zeroed just before and read
+    just after: K2, K4 and K7 once a step, every path kernel launched.
+    Returns (result, launches, CLI examples/s)."""
+    for mod in (SR, CP, RS):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    with StepClock() as clock:
+        res = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in (SR.expand_rows, SR.accumulate_rows,
+                                                CP.coo_pool_rows, CP.coo_accumulate_rows,
+                                                RS.dma_row_scatter)}
+    launches["accumulate_rows (ESMM point)"] = launches["accumulate_rows"]
+    rate = clock.ex_per_s(EB)
+    log(f"{label}: {res['step']} steps in {wall:.1f} s wall, launches {launches}; CLI "
+        f"{rate:.0f} examples/s")
+    check(res["step"] >= ESMM_STEPS, f"{label} ran {res['step']} steps")
+    for name in ("accumulate_rows", "coo_accumulate_rows"):
+        check(launches[name] == res["step"], f"{label}: {name} launched {launches[name]} times in "
+                                             f"{res['step']} steps, expected one a step")
+    check(launches["dma_row_scatter"] == res["step"],
+          f"{label}: dma_row_scatter launched {launches['dma_row_scatter']} times in "
+          f"{res['step']} steps, expected one write-back a step")
+    check(math.isfinite(res["loss"]), f"{label} loss {res['loss']}")
+    for name in ("CTR_AUC", "CVR_AUC", "CTCVR_AUC"):
+        check(0.0 <= res.get(name, -1.0) <= 1.0, f"{label} {name}: {res}")
+    for name, c in launches.items():
+        check(c > 0, f"{name} was not launched on the {label}")
+    return res, launches, rate
+
+
+def last_train_loss(model_dir):
+    with open(os.path.join(model_dir, "smoke", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [r["loss"] for r in recs if r["kind"] == "train"][-1]
+
+
+def esmm_main_path(dev, work, rates):
+    """ESMM through the CLI with the native host input, --map_workers=2 and
+    --packed_cache: a first run that parses the text and writes the
+    cache (the main path whose launches the report counts), a second that
+    must read it and write nothing, and the same steps with
+    --map_workers=1 on the cache, whose loss must match the second run's
+    within 1e-4 relative."""
     data = os.path.join(work, "esmm_data")
     os.makedirs(data)
     tr = os.path.join(data, "tr.samples.txt")
@@ -991,44 +1177,51 @@ def esmm_main_path(dev, work):
                            mh_avg_lens=PUBLISHED_MH_AVG_LENS)
     write_synthetic_aliccp(os.path.join(data, "va.samples.txt"), EB, ESMM_WIDTH["feature_size"],
                            seed=2, zipf_a=1.2, mh_avg_lens=PUBLISHED_MH_AVG_LENS)
-    t_write = time.perf_counter() - t0
-    with open(tr, "rb") as f:
-        lines = [next(f) for _ in range(EB)]
-    t0 = time.perf_counter()
-    parse_aliccp_lines(lines, ESMM_WIDTH["multi_hot_pad"])
-    t_parse = time.perf_counter() - t0
     log(f"ESMM main path data: {ESMM_STEPS * EB} train + {EB} valid lines "
-        f"({os.path.getsize(tr) / 2**20:.0f} MiB of train text) written in {t_write:.1f} s; "
-        f"parse {t_parse:.3f} s per {EB}-line batch (one host thread)")
+        f"({os.path.getsize(tr) / 2**20:.0f} MiB of train text) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rates.update(esmm_host_timings(tr))
+    log(f"ESMM: --multi_hot_pad=0 (auto_multi_hot_pad) would pick a pad of {auto_multi_hot_pad([tr])} "
+        f"for these lines; the cell runs at {ESMM_WIDTH['multi_hot_pad']}")
     argv = [f"--{k}={v}" for k, v in ESMM_WIDTH.items()] + [
         "--task_type=train", "--num_epochs=1", "--log_steps=5", f"--data_dir={data}",
-        f"--model_dir={work}/esmm_model/", "--dt_dir=smoke", "--eval_throttle_secs=0",
-        f"--device={dev.type}", "--seed=2018",
+        "--dt_dir=smoke", "--eval_throttle_secs=0", f"--device={dev.type}", "--seed=2018",
+        "--map_workers=2", "--packed_cache=true",
     ]
-    for mod in (SR, CP, RS):
-        mod.reset_launches()
-    t0 = time.perf_counter()
-    res = cli.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {f.__name__: f.launches for f in (SR.expand_rows, SR.accumulate_rows,
-                                                CP.coo_pool_rows, CP.coo_accumulate_rows,
-                                                RS.dma_row_scatter)}
-    launches["accumulate_rows (ESMM point)"] = launches["accumulate_rows"]
-    log(f"ESMM main path (--dma_scatter): {res['step']} steps in {wall:.1f} s wall, "
-        f"launches {launches}")
-    check(res["step"] >= ESMM_STEPS, f"ESMM main path ran {res['step']} steps")
-    for name in ("accumulate_rows", "coo_accumulate_rows"):
-        check(launches[name] == res["step"], f"ESMM: {name} launched {launches[name]} times in "
-                                             f"{res['step']} steps, expected one a step")
-    check(launches["dma_row_scatter"] == res["step"],
-          f"ESMM: dma_row_scatter launched {launches['dma_row_scatter']} times in {res['step']} "
-          "steps, expected one write-back a step")
-    check(math.isfinite(res["loss"]), f"ESMM main path loss {res['loss']}")
-    for name in ("CTR_AUC", "CVR_AUC", "CTCVR_AUC"):
-        check(0.0 <= res.get(name, -1.0) <= 1.0, f"ESMM main path {name}: {res}")
-    for name, c in launches.items():
-        check(c > 0, f"{name} was not launched on the ESMM main path")
+    res, launches, rates["ESMM CLI, cache build"] = esmm_cli(
+        [*argv, f"--model_dir={work}/esmm_model/"],
+        "ESMM main path (--dma_scatter --map_workers=2 --packed_cache, parses and writes the cache)")
+    cache = os.path.join(data, ".packed_cache")
+    p = ESMM_WIDTH["multi_hot_pad"]
+    metas = sorted(f for f in os.listdir(cache) if f.endswith(".meta.json"))
+    check(metas == [f"tr.samples.txt.p{p}.meta.json", f"va.samples.txt.p{p}.meta.json"],
+          f"ESMM: packed cache sidecars {metas}")
+    snap = {f: os.stat(os.path.join(cache, f)).st_mtime_ns for f in os.listdir(cache)}
+    log(f"ESMM packed cache: {len(snap)} files, "
+        f"{sum(os.path.getsize(os.path.join(cache, f)) for f in snap) / 2**20:.0f} MiB")
+    hit, _, rates["ESMM CLI, cache hit"] = esmm_cli(
+        [*argv, f"--model_dir={work}/esmm_hit/"], "ESMM, second run (reads the cache)")
+    now = {f: os.stat(os.path.join(cache, f)).st_mtime_ns for f in os.listdir(cache)}
+    check(now == snap, "ESMM: the second run wrote to the packed cache; it should only read it")
+    one, _, rates["ESMM CLI, cache hit, --map_workers=1"] = esmm_cli(
+        [*argv, "--map_workers=1", f"--model_dir={work}/esmm_mw1/"],
+        "ESMM, --map_workers=1 (reads the cache)")
+    # each leg's input alone; the build on a hard link of the lines in a
+    # directory of its own, whose cache does not exist yet
+    link = os.path.join(work, "esmm_link")
+    os.makedirs(link)
+    os.link(tr, os.path.join(link, "tr.samples.txt"))
+    for leg, extra in (("ESMM CLI, cache build", [f"--data_dir={link}"]), ("ESMM CLI, cache hit", []),
+                       ("ESMM CLI, cache hit, --map_workers=1", ["--map_workers=1"])):
+        rates[leg + " host"] = host_rate([*argv, *extra], EB)
+        log(f"{leg}: the input alone {rates[leg + ' host']:.0f} examples/s")
+    rel = abs(one["loss"] - hit["loss"]) / abs(hit["loss"])
+    lt2, lt1 = last_train_loss(f"{work}/esmm_hit"), last_train_loss(f"{work}/esmm_mw1")
+    rel_t = abs(lt1 - lt2) / abs(lt2)
+    log(f"ESMM --map_workers=1 vs 2 on the same cached batches: eval loss {one['loss']:.7f} vs "
+        f"{hit['loss']:.7f} (rel {rel:.2e}), last train loss {lt1:.7f} vs {lt2:.7f} "
+        f"(rel {rel_t:.2e}); held at 1e-4")
+    check(rel <= 1e-4 and rel_t <= 1e-4, "ESMM: --map_workers=1 and 2 end at other losses")
     return launches
 
 
@@ -1074,13 +1267,15 @@ def esmm_bare_step(dev, profile):
     return ms
 
 
-def din_cli(argv, steps_min, label):
+def din_cli(argv, steps_min, label, rates=None):
     """One DIN CLI run with every launch counter zeroed just before and
-    read just after; returns (result, launches)."""
+    read just after; returns (result, launches). rates: where a training
+    run puts its CLI examples/s under ``label``."""
     for mod in (SR, CP, SG):
         mod.reset_launches()
     t0 = time.perf_counter()
-    res = cli.main(argv)
+    with StepClock() as clock:
+        res = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {f.__name__: f.launches for f in (SR.expand_rows, SR.accumulate_rows,
@@ -1088,22 +1283,31 @@ def din_cli(argv, steps_min, label):
                                                 SG.sorted_segsum, SG.sorted_expand)}
     steps = res.get("step", 0)
     per = {n: c / max(steps, 1) for n, c in launches.items()}
-    log(f"{label}: {steps} steps in {wall:.1f} s wall, launches {launches}, per step {per}")
+    rate = ""
+    if rates is not None:
+        rates[label] = clock.ex_per_s(EB)
+        rates[label + " host"] = host_rate(argv, EB)
+        rate = f"; CLI {rates[label]:.0f} examples/s; its input alone {rates[label + ' host']:.0f}"
+    log(f"{label}: {steps} steps in {wall:.1f} s wall, launches {launches}, per step {per}{rate}")
     check(steps >= steps_min, f"{label} ran {steps} steps")
     check(math.isfinite(res["loss"]) and 0.0 <= res.get("auc", -1.0) <= 1.0, f"{label}: {res}")
     return res, launches
 
 
-def din_main_path(dev, work):
+def din_main_path(dev, work, rates):
     """DIN training through the CLI on the ESMM path's Ali-CCP lines, then
-    eval, then the --coo_sorted_bwd leg."""
+    eval, then the --coo_sorted_bwd leg with --map_workers=2 (its width
+    bucketer, packer and mapper on two threads, the sorted streams
+    re-padded at the ordered output), whose eval and last train loss
+    must match the same leg's with --map_workers=1 within 1e-4
+    relative."""
     data = os.path.join(work, "esmm_data")
     argv = [f"--{k}={v}" for k, v in DIN_WIDTH.items()] + [
         "--num_epochs=1", "--log_steps=5", f"--data_dir={data}", "--dt_dir=smoke",
         "--eval_throttle_secs=0", f"--device={dev.type}", "--seed=2018",
     ]
     res, launches = din_cli(["--task_type=train", f"--model_dir={work}/din_model/", *argv],
-                            ESMM_STEPS, "DIN main path")
+                            ESMM_STEPS, "DIN main path", rates)
     steps = res["step"]
     for name in ("expand_rows", "accumulate_rows", "sorted_segsum", "sorted_expand"):
         check(launches[name] > 0, f"{name} was not launched on the DIN main path")
@@ -1115,15 +1319,27 @@ def din_main_path(dev, work):
     check(abs(ev["loss"] - res["loss"]) <= 1e-4 * abs(res["loss"]),
           f"DIN eval {ev['loss']} differs from the train run's final eval {res['loss']}")
     sres, slaunches = din_cli(["--task_type=train", f"--model_dir={work}/din_sorted/",
-                               "--coo_sorted_bwd=true", *argv], 3, "DIN --coo_sorted_bwd")
+                               "--coo_sorted_bwd=true", "--map_workers=2", *argv], 3,
+                              "DIN --coo_sorted_bwd --map_workers=2", rates)
     ssteps = sres["step"]
     check(slaunches["sorted_segsum"] == 3 * ssteps,
-          f"DIN --coo_sorted_bwd: sorted_segsum launched {slaunches['sorted_segsum']} times "
+          f"DIN --coo_sorted_bwd --map_workers=2: sorted_segsum launched {slaunches['sorted_segsum']} times "
           f"in {ssteps} steps, expected 3 per step")
     check(slaunches["accumulate_rows"] == ssteps,
           "DIN --coo_sorted_bwd: accumulate_rows should take only the shared lookup's backward")
     check(slaunches["expand_rows"] == 3 * ssteps,
           "DIN --coo_sorted_bwd: expand_rows should also gather the cotangent into sorted order")
+    one, _ = din_cli(["--task_type=train", f"--model_dir={work}/din_sorted_mw1/",
+                      "--coo_sorted_bwd=true", "--map_workers=1", *argv], 3,
+                     "DIN --coo_sorted_bwd --map_workers=1")
+    rel = abs(one["loss"] - sres["loss"]) / abs(sres["loss"])
+    lt2, lt1 = last_train_loss(f"{work}/din_sorted"), last_train_loss(f"{work}/din_sorted_mw1")
+    rel_t = abs(lt1 - lt2) / abs(lt2)
+    log(f"DIN --coo_sorted_bwd --map_workers=1 vs 2 on the same lines: eval loss {one['loss']:.7f} "
+        f"vs {sres['loss']:.7f} (rel {rel:.2e}), last train loss {lt1:.7f} vs {lt2:.7f} "
+        f"(rel {rel_t:.2e}); held at 1e-4")
+    check(one["step"] == ssteps and rel <= 1e-4 and rel_t <= 1e-4,
+          "DIN --coo_sorted_bwd: --map_workers=1 and 2 end at other losses")
     # K5 at n_out = Su: the one launch a step beyond the pool/select pair's
     launches["sorted_segsum (n_out=Su)"] = slaunches["sorted_segsum"] - 2 * ssteps
     # K2 by lookup: the --coo_sorted_bwd leg runs it only for the shared
@@ -1133,7 +1349,7 @@ def din_main_path(dev, work):
     return launches
 
 
-def field_block_main_path(dev, work):
+def field_block_main_path(dev, work, rates):
     """DeepFM's dense step with --field_blocks through the CLI, on libsvm
     data in per-field blocks (the blocks --field_blocks names)."""
     data = os.path.join(work, "fb_data")
@@ -1151,11 +1367,16 @@ def field_block_main_path(dev, work):
     ]
     FB.reset_launches()
     t0 = time.perf_counter()
-    res = cli.main(argv)
+    with StepClock() as clock:
+        res = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"field_block_scatter": FB.field_block_scatter.launches}
-    log(f"DeepFM dense --field_blocks: {res['step']} steps in {wall:.1f} s wall, launches {launches}")
+    leg = "DeepFM dense --field_blocks CLI"
+    rates[leg] = clock.ex_per_s(B)
+    rates[leg + " host"] = host_rate(argv, B)
+    log(f"DeepFM dense --field_blocks: {res['step']} steps in {wall:.1f} s wall, launches {launches}; "
+        f"CLI {rates[leg]:.0f} examples/s; its input alone {rates[leg + ' host']:.0f}")
     check(res["step"] >= FB_STEPS, f"DeepFM --field_blocks ran {res['step']} steps")
     check(math.isfinite(res["loss"]) and 0.0 <= res["auc"] <= 1.0, f"DeepFM --field_blocks: {res}")
     check(launches["field_block_scatter"] == res["step"],
@@ -1224,10 +1445,13 @@ def serving_k1(label, table, idx):
     t = (cuda_ms(lambda: SR.expand_rows(table, idx)), cuda_ms(lambda: SR.expand_rows_plain(table, idx)),
          cuda_ms(lambda: torch.index_select(table, 0, idx)))
     bound = nbytes / HBM_BYTES_PER_S * 1e3
+    # an empty launch in the same harness: a kernel that spins 0 cycles,
+    # the floor under any one-launch gather
+    empty = cuda_ms(lambda: torch.cuda._sleep(0))
     log(f"kernel expand_rows (serving, whole table, {label}): table [{v}, {c}] f32, N={n} ids, "
         f"{rows} distinct rows: bit-exact  {t[0]:.4f} ms  plain {t[1]:.4f} ms  library "
-        f"(index_select) {t[2]:.4f} ms  bound {bound:.5f} ms (bytes: {nbytes / 1e6:.2f} MB; far "
-        f"under one launch's latency, so the launch, not the bytes, sets the time)")
+        f"(index_select) {t[2]:.4f} ms  bound {bound:.5f} ms (bytes: {nbytes / 1e6:.2f} MB); "
+        f"an empty launch (torch.cuda._sleep(0)) in the same harness {empty:.4f} ms")
     return t, bound
 
 
@@ -1737,10 +1961,11 @@ def main() -> int:
         dkp = din_kernel_phase(dev)
         skp = scatter_kernel_phase(dev)
         fkp = field_block_kernel_phase(dev)
-        launches = main_path(dev, work)
-        elaunches = esmm_main_path(dev, work)
-        dlaunches = din_main_path(dev, work)
-        flaunches = field_block_main_path(dev, work)
+        rates = {}  # host-input stage times and CLI examples/s, printed with the bare steps
+        launches = main_path(dev, work, rates)
+        elaunches = esmm_main_path(dev, work, rates)
+        dlaunches = din_main_path(dev, work, rates)
+        flaunches = field_block_main_path(dev, work, rates)
         serve_kp, serve_launches = serving_phase(dev, work)
         bare = bare_steps(dev, profile)
         ebare = esmm_bare_step(dev, profile)
@@ -1796,6 +2021,18 @@ def main() -> int:
         f"with --coo_sorted_bwd {dbare[True]:.3f} ms = {EB / dbare[True] * 1e3:.0f} examples/s, "
         f"with --dma_scatter {dbare['dma']:.3f} ms = {EB / dbare['dma'] * 1e3:.0f} examples/s "
         f"on {card}")
+    bare_rate = {"DeepFM CLI": B / bare["sparse"] * 1e3,
+                 "DeepFM dense --field_blocks CLI": B / bare["dense+field_blocks"] * 1e3,
+                 "ESMM CLI, cache build": EB / ebare * 1e3, "ESMM CLI, cache hit": EB / ebare * 1e3,
+                 "ESMM CLI, cache hit, --map_workers=1": EB / ebare * 1e3,
+                 "DIN main path": EB / dbare[False] * 1e3,
+                 "DIN --coo_sorted_bwd --map_workers=2": EB / dbare[True] * 1e3}
+    log(f"host input on {card}, os.cpu_count()={os.cpu_count()}: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rates.items() if k.endswith(" ms")))
+    for leg, r in bare_rate.items():
+        log(f"CLI vs bare step, {leg}: {rates[leg]:.0f} vs {r:.0f} examples/s "
+            f"({rates[leg] / r:.3f} of the bare step); the input alone {rates[leg + ' host']:.0f} "
+            f"({rates[leg + ' host'] / r:.3f})")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

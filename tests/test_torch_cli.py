@@ -73,8 +73,7 @@ def test_main_train_then_eval(tmp_path, data_dir, extra, capsys):
 @pytest.mark.parametrize(
     "flag",
     ["--fused_moments=true", "--check_numerics=true", "--dist_mode=1", "--slim_transfer=true",
-     "--packed_cache=true", "--profile_steps=2", "--mesh_model=2", "--param_dtype=bfloat16", "--map_workers=2",
-     "--mesh_data=2"],
+     "--profile_steps=2", "--mesh_model=2", "--param_dtype=bfloat16", "--mesh_data=2"],
 )
 def test_unsupported_flags_raise(tmp_path, data_dir, flag):
     with pytest.raises(NotImplementedError, match=flag.split("=")[0]):

@@ -51,6 +51,8 @@ def test_modules_listed():
     assert "tf_repos_tpu_torch.train.harness" in mods
     assert "tf_repos_tpu_torch.serve.server" in mods
     assert "tf_repos_tpu_torch.serve.export" in mods
+    for m in ("native", "pipeline", "cache", "tfrecord"):
+        assert f"tf_repos_tpu_torch.data.{m}" in mods
     assert len(mods) >= 20
 
 
@@ -74,7 +76,7 @@ def test_import_leaves_jax_out():
 def _sources():
     for root, _, files in os.walk(PKG):
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
 
@@ -90,3 +92,29 @@ def test_source_scan(pattern):
             if re.search(pattern, line):
                 hits.append(f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}")
     assert not hits, "\n".join(hits)
+
+
+def test_native_build_reads_only_the_ports_sources(tmp_path, monkeypatch):
+    """The g++ command of the native host input names only sources under
+    tf_repos_tpu_torch/data/native_src, and writes under the build dir."""
+    from tf_repos_tpu_torch.data import native
+
+    assert os.path.realpath(native.SRC_DIR) == os.path.join(PKG, "data", "native_src")
+    assert os.path.realpath(native.BUILD_DIR) == os.path.join(PKG, "_build")
+    seen = []
+    real_run = subprocess.run
+
+    def spy(cmd, *a, **kw):
+        seen.append(list(cmd))
+        return real_run(cmd, *a, **kw)
+
+    monkeypatch.setattr(native.subprocess, "run", spy)
+    out = native.build(native.SRC_DIR, str(tmp_path))
+    assert os.path.isfile(out) and len(seen) == 1
+    cmd = seen[0]
+    assert cmd[0] == "g++"
+    inputs = [a for a in cmd if a.endswith((".cpp", ".cc", ".c", ".h", ".hpp"))]
+    assert sorted(os.path.basename(a) for a in inputs) == sorted(native.SOURCES)
+    for a in inputs:
+        assert os.path.dirname(os.path.realpath(a)) == os.path.join(PKG, "data", "native_src")
+    assert os.path.dirname(cmd[cmd.index("-o") + 1]) == str(tmp_path)

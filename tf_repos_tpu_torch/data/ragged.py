@@ -15,15 +15,18 @@ Field schema:
   Ad:       206->a_cat, 207->a_shop, 216->a_brand (scalar; defaults
             16,17,19), 210->a_int (multi-hot; default 18)
 
-``AliccpDataset`` reads sample-line files into batches. Its shuffle
-permutes the lines of each read chunk (and the file order per epoch), so
-shuffled batches differ from the JAX package's window shuffle; unshuffled
-batches are the same. ``.tfrecord`` input, the packed cache and the pad
-derived from the data (multi_hot_pad=0) are not ported and raise."""
+``AliccpDataset`` reads sample-line files, or ``.tfrecord`` stores of
+the reference's layout (data/tfrecord.py), into batches with the JAX
+package's semantics and random streams, so the same files and seed give
+the same batches, shuffled or not: a window shuffle of ``shuffle_buffer``
+lines (or records) after a per-epoch file shuffle, the C++ line parse
+(data/native.py; ``use_native=False`` takes the plain Python parser),
+and under ``packed_cache`` the parsed arrays cached beside each file
+(data/cache.py) and shuffled a chunk at a time. ``multi_hot_pad=0``
+derives the pad from the data (``auto_multi_hot_pad``)."""
 
 from __future__ import annotations
 
-import random
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -119,11 +122,55 @@ def parse_aliccp_lines(lines: Sequence[bytes], multi_hot_pad: int = 64) -> Batch
     return out
 
 
+def auto_multi_hot_pad(
+    filenames: Sequence[str], sample_lines: int = 2000, pct: float = 99.0
+) -> int:
+    """The static pad length derived from the data: the largest over the
+    multi-hot fields of the per-field ``pct`` percentile length over the
+    first ``sample_lines`` well-formed lines, rounded up to a multiple of
+    8 (at least 8); 64 when there is no line. Per field, not pooled: the
+    published Ali-CCP lengths are skewed per field (the largest field
+    averages 250 ids a sample, the others ~5-40), so a pooled percentile
+    would truncate most of the heavy field's history."""
+    per_field: Dict[str, List[int]] = {m: [] for m in set(UMH_FIELDS) | {AD_MH_FIELD[0]}}
+    seen = 0
+    for path in filenames:
+        if seen >= sample_lines:
+            break
+        with open(path, "rb") as f:
+            for line in f:
+                if seen >= sample_lines:
+                    break
+                parts = line.strip().split(b",")
+                if len(parts) != 4:
+                    continue
+                counts = {m: 0 for m in per_field}
+                for tok in parts[3].split():
+                    fv = tok.split(b":")
+                    if len(fv) == 3 and fv[0].decode() in counts:
+                        counts[fv[0].decode()] += 1
+                for m, c in counts.items():
+                    per_field[m].append(c)
+                seen += 1
+    if not seen:
+        return 64
+    p = max(int(np.percentile(np.asarray(v), pct)) for v in per_field.values() if v)
+    return max(8, ((p + 7) // 8) * 8)
+
+
+def _pad_rows(batch: Batch, n: int, size: int) -> Batch:
+    """A batch of n < size rows zero-padded to size rows (mask rows 0)."""
+    pad = size - n
+    return {k: np.pad(v, [(0, pad)] + [(0, 0)] * (v.ndim - 1)) for k, v in batch.items()}
+
+
 class AliccpDataset:
-    """Iterates ``num_epochs`` passes over sample-line files, yielding
-    padded batches of ``batch_size`` lines (blank lines skipped). The last
-    partial batch is zero-padded to ``batch_size``; its padded rows carry
-    mask 0."""
+    """Iterates ``num_epochs`` passes over sample-line files or over
+    ``.tfrecord`` stores (not both: mixed inputs raise), yielding padded
+    batches of ``batch_size`` samples. The last partial batch is
+    zero-padded to ``batch_size`` (its padded rows carry mask 0).
+    ``multi_hot_pad=0`` derives the pad from the
+    sample lines (``auto_multi_hot_pad``)."""
 
     def __init__(
         self,
@@ -131,58 +178,144 @@ class AliccpDataset:
         batch_size: int = 32,
         num_epochs: int = 1,
         perform_shuffle: bool = False,
+        shuffle_buffer: int = 256,
         multi_hot_pad: int = 64,
         seed: Optional[int] = None,
+        packed_cache: bool = False,
+        use_native: bool = True,
     ):
-        self.filenames = [filenames] if isinstance(filenames, str) else list(filenames)
-        tfrecords = [f for f in self.filenames if f.endswith(".tfrecord")]
-        if tfrecords:
-            raise NotImplementedError(
-                f".tfrecord input ({tfrecords[0]}): not implemented in "
-                "tf_repos_tpu_torch yet (sample-line files only)"
-            )
-        if multi_hot_pad <= 0:
-            raise NotImplementedError(
-                "--multi_hot_pad=0 (the pad derived from the data): not "
-                "implemented in tf_repos_tpu_torch yet"
-            )
-        self.batch_size = batch_size
-        self.num_epochs = num_epochs
-        self.perform_shuffle = perform_shuffle
-        self.chunk_lines = max(65536, batch_size)  # lines read (and shuffled) at a time
-        self.multi_hot_pad = multi_hot_pad
-        self.rng = random.Random(seed)
-        self._nprng = np.random.default_rng(seed)
+        from tf_repos_tpu_torch.data.libsvm import LibsvmDataset
+        from tf_repos_tpu_torch.data.tfrecord import is_tfrecord_file
 
-    def _iter_chunks(self) -> Iterator[List[bytes]]:
-        for _ in range(self.num_epochs):
-            files = list(self.filenames)
-            if self.perform_shuffle:
-                self.rng.shuffle(files)
-            for path in files:
-                pending: List[bytes] = []
-                with open(path, "rb") as f:
-                    for ln in f:
-                        if ln.strip():
-                            pending.append(ln)
-                        if len(pending) == self.chunk_lines:
-                            yield pending
-                            pending = []
-                if pending:
-                    yield pending
+        # the line reader: file shuffle, window shuffle and their random
+        # stream, and the line-aligned blobs of the packed-cache path
+        self._inner = LibsvmDataset(
+            filenames, field_size=1, batch_size=batch_size, num_epochs=num_epochs,
+            perform_shuffle=perform_shuffle, shuffle_buffer=shuffle_buffer,
+            seed=seed, use_native=False,
+        )
+        self.batch_size = batch_size
+        self.packed_cache = packed_cache
+        n_rec = sum(is_tfrecord_file(f) for f in self._inner.filenames)
+        if 0 < n_rec < len(self._inner.filenames):
+            raise ValueError(
+                "AliccpDataset: mixed sample-line and .tfrecord inputs; "
+                "convert one side (data/tfrecord.py convert_sample_file)"
+            )
+        self.tfrecord = n_rec > 0
+        if multi_hot_pad <= 0:
+            if self.tfrecord:
+                raise ValueError("multi_hot_pad=0 (auto) requires sample-line inputs")
+            multi_hot_pad = auto_multi_hot_pad(self._inner.filenames)
+        self.multi_hot_pad = multi_hot_pad
+        self._native = None
+        if use_native:
+            from tf_repos_tpu_torch.data import native
+
+            native.load()  # builds the library now; raises if it cannot
+            self._native = native
+
+    def _parse_lines(self, lines: List[bytes]) -> Batch:
+        if self._native is not None:
+            return self._native.parse_aliccp_lines(lines, self.multi_hot_pad)
+        return parse_aliccp_lines(lines, self.multi_hot_pad)
+
+    def _parse_records(self, payloads: List[bytes]) -> Batch:
+        from tf_repos_tpu_torch.data.tfrecord import parse_aliccp_examples
+
+        return parse_aliccp_examples(payloads, self.multi_hot_pad)
 
     def __iter__(self) -> Iterator[Batch]:
-        B = self.batch_size
-        carry: List[bytes] = []
-        for chunk in self._iter_chunks():
-            if self.perform_shuffle:
-                chunk = [chunk[i] for i in self._nprng.permutation(len(chunk))]
-            lines = carry + chunk
-            n_full = len(lines) // B
-            for i in range(n_full):
-                yield parse_aliccp_lines(lines[i * B : (i + 1) * B], self.multi_hot_pad)
-            carry = lines[n_full * B :]
-        if carry:
-            batch = parse_aliccp_lines(carry, self.multi_hot_pad)
-            pad = B - len(carry)
-            yield {k: np.pad(v, [(0, pad)] + [(0, 0)] * (v.ndim - 1)) for k, v in batch.items()}
+        if self.packed_cache:
+            # tfrecord inputs cache the same way: _parse_file_chunks
+            # dispatches per file
+            yield from self._iter_dict_batches(self._iter_cached_chunks())
+            return
+        if self.tfrecord:
+            items, parse = self._iter_record_payloads(), self._parse_records
+        else:
+            items, parse = self._inner._iter_shuffled_lines(), self._parse_lines
+        pending: List[bytes] = []
+        for item in items:
+            pending.append(item)
+            if len(pending) == self.batch_size:
+                yield parse(pending)
+                pending = []
+        if pending:
+            yield _pad_rows(parse(pending), len(pending), self.batch_size)
+
+    # ----------------------------------------------------- tfrecord path
+    def _iter_record_payloads(self) -> Iterator[bytes]:
+        """Record payloads with the line path's epoch, file-shuffle and
+        window-shuffle semantics (the same random stream)."""
+        from tf_repos_tpu_torch.data.libsvm import window_shuffle
+        from tf_repos_tpu_torch.data.tfrecord import iter_records
+
+        inner = self._inner
+
+        def raw():
+            for _ in range(inner.num_epochs):
+                for path in inner._epoch_files():
+                    yield from iter_records(path)
+
+        if not inner.perform_shuffle:
+            return raw()
+        return window_shuffle(raw(), inner.rng, inner.shuffle_buffer)
+
+    # -------------------------------------------------- packed-cache path
+    def _parse_file_chunks(self, path: str) -> Iterator[Batch]:
+        """In-order parsed dict chunks of one file: the native blob parse
+        on 2 threads (the plain line parse with use_native=False), or
+        chunks of 65,536 records for a .tfrecord file. The 'label' alias
+        is dropped; it is put back per batch."""
+        from tf_repos_tpu_torch.data.libsvm import BLOB_BYTES, blobs_for_file
+        from tf_repos_tpu_torch.data.pipeline import ordered_map
+        from tf_repos_tpu_torch.data.tfrecord import (
+            is_tfrecord_file,
+            iter_records,
+            parse_aliccp_examples,
+        )
+
+        def strip(d: Batch) -> Batch:
+            d = dict(d)
+            d.pop("label", None)
+            return d
+
+        if is_tfrecord_file(path):
+            pend: List[bytes] = []
+            for payload in iter_records(path):
+                pend.append(payload)
+                if len(pend) == 65536:
+                    yield strip(parse_aliccp_examples(pend, self.multi_hot_pad))
+                    pend = []
+            if pend:
+                yield strip(parse_aliccp_examples(pend, self.multi_hot_pad))
+            return
+        if self._native is None:
+            for blob in blobs_for_file(path, BLOB_BYTES):
+                lines = [ln for ln in blob.split(b"\n") if ln.strip()]
+                yield strip(parse_aliccp_lines(lines, self.multi_hot_pad))
+            return
+        native, p = self._native, self.multi_hot_pad
+        yield from ordered_map(lambda blob: strip(native.parse_aliccp_blob(blob, p)),
+                               blobs_for_file(path, BLOB_BYTES), 2)
+
+    def _iter_cached_chunks(self) -> Iterator[Batch]:
+        from tf_repos_tpu_torch.data.cache import cached_chunks
+
+        for _ in range(self._inner.num_epochs):
+            for path in self._inner._epoch_files():
+                yield from cached_chunks(path, f"p{self.multi_hot_pad}", self._parse_file_chunks)
+
+    def _iter_dict_batches(self, chunks: Iterator[Batch]) -> Iterator[Batch]:
+        from tf_repos_tpu_torch.data.pipeline import iter_dict_batches
+
+        def emit(d: Batch) -> Batch:
+            d = dict(d)
+            d["label"] = d["y"]  # the alias dropped from the packed cache
+            return d
+
+        yield from iter_dict_batches(
+            chunks, batch_size=self.batch_size, row_key="y", nprng=self._inner._nprng,
+            shuffle=self._inner.perform_shuffle, emit=emit,
+        )

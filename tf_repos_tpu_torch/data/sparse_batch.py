@@ -1,7 +1,8 @@
 """Host-side batch preparation for the lazy sparse-table path (the port's
 own copy of the JAX package's data/sparse_batch.py: the dedup mapper,
 the multi-hot COO packer, the multi-hot width bucketer and
-quarter_pow2). Host numpy only.
+quarter_pow2). Host numpy, and the C++ duplicate combine of
+data/native.py under --mh_coo_combine.
 
 For each sparse table (model.sparse_slots()) the mapper computes the
 batch's unique id set and rewrites the batch:
@@ -143,23 +144,36 @@ def quarter_pow2(m: int) -> int:
     return p
 
 
-def combine_dups(a: np.ndarray, v: Optional[np.ndarray] = None):
+def combine_dups(a: np.ndarray, v: Optional[np.ndarray] = None, use_native: bool = True):
     """Combine duplicate ids within each row of a padded multi-hot field
     [B, P] (live slots: id > 0). Returns (ids int32, weights f32, counts
-    per row int32), rows ascending and ids ascending within a row.
-    v=None weighs each occurrence 1.0; otherwise the weights of duplicate
-    (row, id) pairs are summed, which is exact for sum combiners up to
-    float summation order."""
+    per row int32), rows ascending and ids in first-seen order within a
+    row, as the JAX package's native combine emits them. v=None weighs
+    each occurrence 1.0; otherwise the weights of duplicate (row, id)
+    pairs are summed, which is exact for sum combiners up to float
+    summation order.
+
+    use_native=True runs the C++ per-row hash (data/native.py; it adds in
+    f32 in slot order, rounding once an addend); use_native=False the
+    plain numpy version, which sums in f64 and rounds once, so the two
+    weights may differ in their last bits."""
+    if use_native:
+        from tf_repos_tpu_torch.data import native
+
+        return native.combine_dups(a, v)
     b, p = a.shape
     fa = a.reshape(-1)
     lv = np.flatnonzero(fa > 0)
     w = v.reshape(-1)[lv].astype(np.float32) if v is not None else np.ones(lv.size, np.float32)
     key = ((lv // p).astype(np.int64) << 32) | fa[lv].astype(np.int64)
-    uk, inv = np.unique(key, return_inverse=True)
-    wc = np.bincount(inv, weights=w).astype(np.float32)
-    ids_c = (uk & 0xFFFFFFFF).astype(np.int32)
+    uk, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    wc = np.bincount(inv.reshape(-1), weights=w, minlength=uk.size).astype(np.float32)
+    # the slots are row-major, so the order of first occurrence is rows
+    # ascending, then first-seen within a row
+    order = np.argsort(first, kind="stable")
+    ids_c = (uk[order] & 0xFFFFFFFF).astype(np.int32)
     cnt = np.bincount((uk >> 32).astype(np.int64), minlength=b).astype(np.int32)
-    return ids_c, wc, cnt
+    return ids_c, wc[order], cnt
 
 
 class MhPadBucketer:
@@ -228,8 +242,9 @@ class MhCooPacker:
     JAX package's data-shard axis (one shard on one device).
 
     combine=True sums the weights of duplicate (row, id) pairs per group
-    first (combine_dups), exact for sum-pooling consumers only (the
-    harness gates it on model.coo_combine_ok()).
+    first (combine_dups, the C++ combine unless use_native=False), exact
+    for sum-pooling consumers only (the harness gates it on
+    model.coo_combine_ok()).
 
     cdest_aux=True adds __mhc_cdest, the compact segment stream of the
     sorted-stream kernels (DIN attention); sorted_aux=True adds the
@@ -239,11 +254,12 @@ class MhCooPacker:
     defaults cdest_aux on; its harness, like the port's, passes both)."""
 
     def __init__(self, groups, floor: int = 1024, combine: bool = False,
-                 cdest_aux: bool = False, sorted_aux: bool = False):
+                 cdest_aux: bool = False, sorted_aux: bool = False, use_native: bool = True):
         if not groups:
             raise ValueError("--mh_coo: model declares no multi-hot groups")
         self.groups = tuple(groups)
         self.combine = bool(combine)
+        self.use_native = use_native
         self.cdest_aux = bool(cdest_aux)
         self.sorted_aux = bool(sorted_aux)
         self._bucket = max(int(floor), 1)
@@ -261,7 +277,7 @@ class MhCooPacker:
             if cnt is None:
                 cnt = np.zeros((1, ngr, b), np.int32)
             if self.combine:
-                ic, wc, cr = combine_dups(a, v)
+                ic, wc, cr = combine_dups(a, v, use_native=self.use_native)
                 rows = np.repeat(np.arange(b, dtype=np.int64), cr)
             else:
                 fa = a.reshape(-1)

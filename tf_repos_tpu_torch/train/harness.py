@@ -24,27 +24,39 @@ mapper), which the COO pool kernels consume (ESMM), or the sorted-stream
 kernels with the packer's compact segment stream (DIN attention; with
 --coo_sorted_bwd also its idx-sorted stream); eval and infer batches
 stay padded. --mh_bucket slices the padded multi-hot fields of every
-split to the batch's live width first. --steps_per_dispatch K runs as a
-plain loop of K steps. Flags whose code path the port does not have yet
-(check_supported) raise NotImplementedError by name."""
+split to the batch's live width first. The host input (data/) parses in
+C++ (data/native.py), caches the parsed arrays beside each file under
+--packed_cache, and under --map_workers N runs the training split's map
+chain (bucketer, packer, mapper) on N threads in stream order; a
+Prefetcher thread keeps --prefetch_batches batches ready.
+--steps_per_dispatch K runs as a plain loop of K steps. Flags whose code
+path the port does not have yet (check_supported) raise
+NotImplementedError by name."""
 
 from __future__ import annotations
 
 import json
 import os
-import queue
 import signal
-import threading
 import time
-from typing import Any, Dict, Iterable, Iterator, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from tf_repos_tpu_torch.config import Config, echo_config
 from tf_repos_tpu_torch.data.libsvm import LibsvmDataset, glob_input_files
+from tf_repos_tpu_torch.data.pipeline import Prefetcher, parallel_mapped_batches
 from tf_repos_tpu_torch.data.ragged import MH_PAIRS, AliccpDataset
 from tf_repos_tpu_torch.data.sparse_batch import (
+    MHC_CDEST,
+    MHC_CIDX,
+    MHC_DEST,
+    MHC_IDX,
+    MHC_PERM,
+    MHC_SROWS,
+    MHC_W,
+    UIDS_PREFIX,
     MhCooPacker,
     MhPadBucketer,
     SparseBatchMapper,
@@ -66,10 +78,8 @@ def check_supported(cfg: Config) -> None:
         "--mesh_model>1": cfg.mesh_model > 1,
         "--dist_mode": cfg.dist_mode != 0,
         "--slim_transfer": cfg.slim_transfer,
-        "--packed_cache": cfg.packed_cache,
         "--fused_moments": cfg.fused_moments,
         f"--param_dtype={cfg.param_dtype}": cfg.param_dtype not in ("float32", "f32", ""),
-        "--map_workers>1": cfg.map_workers > 1,
         "--profile_steps": cfg.profile_steps > 0,
         "--check_numerics": cfg.check_numerics,
     }
@@ -83,38 +93,14 @@ def check_supported(cfg: Config) -> None:
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    """Host arrays -> tensors on ``device``. A read-only array (a view of
+    the packed cache's memmap) is copied first: torch.from_numpy would
+    alias it, and on the CPU the tensor would be that read-only memory."""
+    def tensor(v):
+        a = np.ascontiguousarray(v)
+        return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
 
-
-class _Prefetch:
-    """Runs the host side of the input pipeline (parse, shuffle, dedup
-    mapper) on a thread, ``size`` batches ahead."""
-
-    _END = object()
-
-    def __init__(self, it: Iterable, size: int):
-        self._q: queue.Queue = queue.Queue(maxsize=max(size, 1))
-        self._err: Optional[BaseException] = None
-        self._thread = threading.Thread(target=self._run, args=(it,), daemon=True)
-        self._thread.start()
-
-    def _run(self, it):
-        try:
-            for x in it:
-                self._q.put(x)
-        except Exception as e:  # re-raised in the consumer
-            self._err = e
-        finally:
-            self._q.put(self._END)
-
-    def __iter__(self) -> Iterator:
-        while True:
-            x = self._q.get()
-            if x is self._END:
-                if self._err is not None:
-                    raise self._err
-                return
-            yield x
+    return {k: tensor(v) for k, v in batch.items()}
 
 
 class GracefulStop:
@@ -265,6 +251,11 @@ class Harness:
 
     # ------------------------------------------------------------- datasets
     def _dataset(self, split: str, *, shuffle: bool, epochs: int) -> Iterable:
+        """split in {tr, va, te}: the reader of the model's input format,
+        then the host map chain (width bucketer on every split; on the
+        training split of the sparse step the COO packer and the dedup
+        mapper), on --map_workers threads for the training split, behind
+        a Prefetcher thread."""
         cfg = self.cfg
         fmt = input_format(self.model)
         if fmt == "aliccp":
@@ -274,16 +265,11 @@ class Harness:
             files = glob_input_files(cfg.data_dir, f"{split}*{fmt}", shuffle=shuffle, seed=cfg.seed)
         if not files:
             raise FileNotFoundError(f"no {split}* {fmt} input files in {cfg.data_dir}")
-        common = dict(batch_size=cfg.batch_size, num_epochs=epochs, perform_shuffle=shuffle,
-                      seed=cfg.seed)
-        ds: Iterable
-        if fmt == "aliccp":
-            ds = AliccpDataset(files, multi_hot_pad=cfg.multi_hot_pad, **common)
-        else:
-            ds = LibsvmDataset(files, field_size=cfg.field_size, **common)
+        ds: Iterable = self._build_reader(files, fmt, shuffle=shuffle, epochs=epochs)
+        factories = []
         if self._mh_bucket:
             # live-width slicing first: smaller id arrays for everything after
-            ds = mapped_batches(ds, MhPadBucketer(MH_PAIRS, cfg.mh_bucket))
+            factories.append(lambda: MhPadBucketer(MH_PAIRS, cfg.mh_bucket))
         if split == "tr" and self._sparse_slots is not None:
             if cfg.mh_coo:
                 combine = cfg.mh_coo_combine and self.model.coo_combine_ok()
@@ -298,16 +284,65 @@ class Harness:
                 # kernels need the compact segment stream, and
                 # --coo_sorted_bwd the idx-sorted stream; both only reach
                 # a kernel under --pallas_expand
-                ds = mapped_batches(ds, MhCooPacker(
-                    self.model.mh_coo_groups(),
-                    floor=max(cfg.mh_coo_floor, 1) if cfg.mh_coo_floor else 1024,
-                    combine=combine,
-                    cdest_aux=cfg.pallas_expand and self.model.wants_sorted_seg(),
-                    sorted_aux=(cfg.coo_sorted_bwd and cfg.pallas_expand
-                                and self.model.wants_sorted_aux()),
-                ))
-            ds = mapped_batches(ds, SparseBatchMapper(self._sparse_slots, pad_mode=cfg.sparse_pad_mode))
-        return _Prefetch(ds, cfg.prefetch_batches)
+                groups = self.model.mh_coo_groups()
+                floor = max(cfg.mh_coo_floor, 1) if cfg.mh_coo_floor else 1024
+                cdest = cfg.pallas_expand and self.model.wants_sorted_seg()
+                saux = cfg.coo_sorted_bwd and cfg.pallas_expand and self.model.wants_sorted_aux()
+                factories.append(lambda: MhCooPacker(groups, floor=floor, combine=combine,
+                                                     cdest_aux=cdest, sorted_aux=saux))
+            slots, pad_mode = self._sparse_slots, cfg.sparse_pad_mode
+            factories.append(lambda: SparseBatchMapper(slots, pad_mode=pad_mode))
+        if cfg.map_workers > 1 and split == "tr" and factories:
+            # one chain a worker; pad widths re-padded at the ordered
+            # output (data/pipeline.parallel_mapped_batches says why the
+            # batches compute the same function)
+            def make_chain():
+                stages = [f() for f in factories]
+
+                def chain(b):
+                    for stage in stages:
+                        b = stage(b)
+                    return b
+
+                return chain
+
+            ds = parallel_mapped_batches(ds, make_chain, cfg.map_workers, self._map_pad_rules())
+        else:
+            for f in factories:
+                ds = mapped_batches(ds, f())
+        return Prefetcher(ds, size=cfg.prefetch_batches)
+
+    def _build_reader(self, files: List[str], fmt: str, *, shuffle: bool, epochs: int) -> Iterable:
+        cfg = self.cfg
+        common = dict(batch_size=cfg.batch_size, num_epochs=epochs, perform_shuffle=shuffle,
+                      shuffle_buffer=cfg.shuffle_buffer, seed=cfg.seed,
+                      packed_cache=cfg.packed_cache)
+        if fmt == "aliccp":
+            return AliccpDataset(files, multi_hot_pad=cfg.multi_hot_pad, **common)
+        # --num_threads sizes the native parser's thread pool
+        workers = max(1, min(cfg.num_threads, (os.cpu_count() or 4) - 1))
+        return LibsvmDataset(files, field_size=cfg.field_size, parse_workers=workers, **common)
+
+    def _map_pad_rules(self) -> Dict[str, Any]:
+        """Last-axis re-pad sentinels of the keys whose width the map chain
+        buckets (--map_workers): vocab for uids (out of range, dropped by
+        the device scatter), 0 for the COO streams and the bucketed
+        multi-hot ids/vals (the dead-slot convention)."""
+        rules: Dict[str, Any] = {}
+        if self._sparse_slots is not None:
+            for t, s in self._sparse_slots.items():
+                rules[UIDS_PREFIX + t] = s.vocab
+        if self.cfg.mh_coo:
+            rules.update({MHC_IDX: 0, MHC_DEST: 0, MHC_W: 0.0, MHC_CDEST: 0,
+                          # the idx-sorted stream (the device masks sorted
+                          # positions >= the live count)
+                          MHC_PERM: 0, MHC_CIDX: 0, MHC_SROWS: 0})
+        if self._mh_bucket:
+            for ids_f, vals_f in MH_PAIRS:
+                rules[ids_f] = 0
+                if vals_f:
+                    rules[vals_f] = 0.0
+        return rules
 
     # ----------------------------------------------------------------- train
     def train(self) -> Dict[str, float]:

@@ -22,7 +22,8 @@ result line):
   3. kernel vs plain PyTorch on the card, at each main path's shapes:
      a. DeepFM (B=16384, 26 dynamic fields of Zipf(1.2) ids remapped by
         the host dedup mapper, K=1+16) plus a ragged and an
-        all-duplicates case: expand_rows must be bit-exact;
+        all-duplicates case: expand_rows must be bit-exact (f32, and
+        bf16 at the same row stride);
         accumulate_rows (atomics, run-to-run sum order) must satisfy
         |kernel - plain| <= 1e-4 * sum_i |g_i| per element: f32
         round-off grows like sqrt(n) * 6e-8 <= 4e-5 of that sum for the
@@ -42,9 +43,10 @@ result line):
         design's flat walk and this strip walk (pool_reductions), its
         time on an all-zero table, where it sends none, and the time of
         the wrapper's zero fill alone;
-        expand_rows (bit-exact) and accumulate_rows at the same S on the
-        single-valued fields' ids, the table being the w columns of the
-        [S, 48] store;
+        expand_rows (bit-exact, f32 and bf16) and accumulate_rows at the
+        same S on the single-valued fields' ids, the table being the w
+        columns of the [S, 48] store, and expand_rows also on its m
+        columns (su[:, 16:32], 16-byte aligned) and on su[:, 1:17];
      c. DIN at the same published point, batches through the port's
         bucketer, packer (compact segment and idx-sorted streams) and
         mapper: sorted_segsum at n_out = G (the pooled bags) and at
@@ -57,7 +59,7 @@ result line):
         (one atomic per run and column) and this one's
         (segsum_reductions), and its time on all-zero values, where it
         sends none;
-        sorted_expand bit-exact in both dtypes; K1 and K2 on the COO
+        sorted_expand bit-exact in both dtypes; K1 (f32 and bf16) and K2 on the COO
         lookup's ids, and K2 on the shared lookup's ids (the step's own
         layout, a cotangent of exactly 0 on the a_int padding slots);
         beside each K2 and K4 time, the longest chain: the most slots on
@@ -119,8 +121,13 @@ result line):
      least once a scored batch; hot reload; latency per bucket (50
      scorer calls each) and HTTP round trips; ESMM and DIN exported and
      scored (one bucket of 64 va lines) by the card's and a CPU scorer;
-     K1 at each scorer's gather over the whole table, bit-exact, timed
-     beside index_select and an empty launch (torch.cuda._sleep(0));
+     the device operations of one DeepFM bucket-512 Scorer.score
+     (torch.profiler); K1 at each scorer's gather over the whole table,
+     the ids as the model passes them: the one-launch serving entry
+     (JAX's id rule in the kernel) bit-exact in f32 and bf16, wild ids
+     included, and exactly one device operation; timed alone, as the
+     whole gather before (normalize_ids + K1) and now, beside
+     index_select and an empty launch (torch.cuda._sleep(0));
 then the kernel report line and, last, the device line.
 """
 
@@ -362,17 +369,36 @@ def zipf_batches(n: int, seed: int = 0, batch: int = B):
 
 
 # ------------------------------------------------------------------ phase 3
-def kernel_phase(dev):
+def deepfm_point(dev):
+    """One DeepFM batch at the benchmark point (B=16384, Zipf(1.2) ids)
+    through the host dedup mapper, and K1's and K2's inputs on the card:
+    the 26 dynamic fields' remapped ids, S, and the gathered [S, 3K]
+    w|m|v rows ``su``, whose w columns are the table (a [S, K] view with
+    row stride 3K, as on the main path)."""
     model = create_model(Config(**WIDTH))
     mapped = SparseBatchMapper(model.sparse_slots())(zipf_batches(1)[0])
     s = int(mapped["__uids_fm_wv"].shape[0])
     idx = torch.from_numpy(np.ascontiguousarray(mapped["feat_ids"][:, STATIC:]).reshape(-1)).to(dev)
-    n, k = idx.shape[0], 1 + WIDTH["embedding_size"]
+    k = 1 + WIDTH["embedding_size"]
     gen = torch.Generator(device=dev).manual_seed(0)
-    # on the main path the table is the w columns of the gathered [S, 3K]
-    # w|m|v rows: a [S, K] view with row stride 3K
     su = torch.randn((s, 3 * k), generator=gen, device=dev)
-    table = su[:, :k]
+    return dict(mapped=mapped, s=s, idx=idx, n=idx.shape[0], k=k, gen=gen, su=su, table=su[:, :k])
+
+
+def k1_exact(label, store, lo, k, idx):
+    """K1 bit-exact against table[idx] on the view store[:, lo:lo+k], in
+    the store's f32 and in bf16 (the same view of a bf16 copy)."""
+    for st in (store, store.to(torch.bfloat16)):
+        t = st[:, lo:lo + k]
+        check(torch.equal(SR.expand_rows(t, idx), SR.expand_rows_plain(t, idx)),
+              f"expand_rows {label} ({t.dtype}, row stride {t.stride(0)}, column {lo}) differs "
+              "from table[idx]")
+
+
+def kernel_phase(dev):
+    pt = deepfm_point(dev)
+    mapped, s, idx, n, k, gen, table = (pt[key] for key in ("mapped", "s", "idx", "n", "k", "gen",
+                                                            "table"))
     g = torch.randn((n, k), generator=gen, device=dev)
     log(f"kernel shapes: S={s} N={n} K={k} (unique rows {int((mapped['__uids_fm_wv'] < WIDTH['feature_size']).sum())})")
 
@@ -380,7 +406,7 @@ def kernel_phase(dev):
     out_k = SR.expand_rows(table, idx)
     torch.cuda.synchronize()
     err1 = float((out_k - SR.expand_rows_plain(table, idx)).abs().max())
-    check(torch.equal(out_k, SR.expand_rows_plain(table, idx)), "expand_rows differs from table[idx]")
+    k1_exact("at the DeepFM point", pt["su"], 0, k, idx)
     # K2
     acc_k = SR.accumulate_rows(g, idx, s)
     acc_p = SR.accumulate_rows_plain(g, idx, s)
@@ -513,10 +539,15 @@ def esmm_point(dev):
     s, k = int(mapped["__uids_emb"].shape[0]), ESMM_WIDTH["embedding_size"]
     g = EB * len(model.mh_coo_groups())
     gen = torch.Generator(device=dev).manual_seed(1)
-    table = torch.randn((s, 3 * k), generator=gen, device=dev)[:, :k]
+    store = torch.randn((s, 3 * k), generator=gen, device=dev)
     dp = torch.randn((g, k), generator=gen, device=dev)
+    # K1's ids at this point: the lookup of the 14 single-valued fields
+    ids = torch.from_numpy(np.concatenate(
+        [mapped["feat_ids"]] + [mapped[f][:, None] for f in ("a_catids", "a_shopids", "a_brandids")],
+        axis=1).reshape(-1)).to(dev)
     return dict(model=model, raw=raw, mapped=mapped, idx=idx, dest=dest, w=w, m=idx.shape[0],
-                m_live=int(mapped[MHC_CNT].sum()), s=s, k=k, g=g, gen=gen, table=table, dp=dp)
+                m_live=int(mapped[MHC_CNT].sum()), s=s, k=k, g=g, gen=gen, store=store,
+                table=store[:, :k], dp=dp, ids=ids)
 
 
 K3_STRIP = 16  # slots one K3 thread sums (csrc/coo_pool.cu STRIP)
@@ -603,13 +634,13 @@ def esmm_kernel_phase(dev):
     # K1 and K2 at this point's S, above the JAX package's 49,152-row
     # cap, where it runs an XLA gather forward and the lane-packed
     # accumulate_rows_packed backward: the lookup of the 14 single-valued
-    # fields into the w columns of the [S, 3K] store, and its cotangent
-    ids = torch.from_numpy(np.concatenate(
-        [mapped["feat_ids"]] + [mapped[f][:, None] for f in ("a_catids", "a_shopids", "a_brandids")],
-        axis=1).reshape(-1)).to(dev)
+    # fields into the w columns of the [S, 3K] store, and its cotangent;
+    # K1 also on the m columns (su[:, 16:32], 16-byte aligned) and on
+    # su[:, 1:17] (4 bytes past it: the word path)
+    ids = pt["ids"]
     n2 = ids.shape[0]
-    check(torch.equal(SR.expand_rows(table, ids), SR.expand_rows_plain(table, ids)),
-          "expand_rows at the ESMM point differs from table[idx]")
+    for lo in (0, 16, 1):
+        k1_exact("at the ESMM point", pt["store"], lo, k, ids)
     g2 = torch.randn((n2, k), generator=gen, device=dev)
     e2 = held("accumulate_rows at the ESMM point", SR.accumulate_rows(g2, ids, s),
               SR.accumulate_rows_plain(g2, ids, s), SR.accumulate_rows_plain(g2.abs(), ids, s))
@@ -850,9 +881,9 @@ def din_kernel_phase(dev):
 
     # K1 and K2 on the COO lookup of the slots without --coo_sorted_bwd
     # (N = M ids, padding on row 0): where the hot-row atomics showed
-    table = torch.randn((s, 3 * k), generator=gen, device=dev)[:, :k]
-    check(torch.equal(SR.expand_rows(table, idx), SR.expand_rows_plain(table, idx)),
-          "expand_rows at the DIN point differs from table[idx]")
+    store = torch.randn((s, 3 * k), generator=gen, device=dev)
+    table = store[:, :k]
+    k1_exact("at the DIN COO lookup", store, 0, k, idx)
     b12 = (m * k * 4 + m * 4 + s * k * 4) / HBM_BYTES_PER_S * 1e3
     log(f"kernel expand_rows at the DIN COO lookup (S={s}, N={m}, K={k}): bit-exact  "
         f"{cuda_ms(lambda: SR.expand_rows(table, idx)):.4f} ms  "
@@ -1432,26 +1463,98 @@ def held_rel(name, got, want, rtol):
     return float(d.max())
 
 
-def serving_k1(label, table, idx):
-    """K1 at a scorer's gather over the whole table: bit-exact against the
-    plain gather, its CUDA-event time beside the plain version's and
-    index_select's, and its bound: the ids, the distinct rows they read
-    and the output, each moved once."""
+def device_ops(fn) -> int:
+    """The device operations (kernels, copies, fills) of one call of fn,
+    from torch.profiler, as profile_step counts them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+
+
+def deepfm_serving_ids(feat_ids, dev):
+    """The ids DeepFM's serving lookup receives for a [B, 39] batch: the
+    26 dynamic fields, a view of the int32 batch on the card."""
+    return torch.from_numpy(np.asarray(feat_ids, np.int32)).to(dev)[:, STATIC:]
+
+
+ALICCP_GATHER_KEYS = ("feat_ids", "u_catids", "u_shopids", "u_brandids", "u_intids", "a_catids",
+                      "a_shopids", "a_brandids", "a_intids")
+
+
+def aliccp_serving_ids(batch, dev):
+    """The ids of ESMM's and DIN's one padded serving gather: the common,
+    user, scalar ad and a_int ids of each row, int32 [B, 2574] at pad 512."""
+    n = batch["feat_ids"].shape[0]
+    return torch.from_numpy(np.concatenate(
+        [np.asarray(batch[k], np.int32).reshape(n, -1) for k in ALICCP_GATHER_KEYS], axis=1)).to(dev)
+
+
+def old_serving_gather(table, ids):
+    """The serving gather before K1 took JAX's id rule: normalize_ids on
+    the card (after a copy of a non-contiguous view), then K1."""
+    flat = SR.normalize_ids(ids.reshape(-1), table.shape[0]).to(torch.int32).contiguous()
+    return SR.expand_rows(table, flat).reshape(tuple(ids.shape) + (table.shape[-1],))
+
+
+def serving_k1(label, table, ids):
+    """K1 at a scorer's gather over the whole table, ``ids`` as the
+    model's lookup receives them: the one-launch serving entry
+    (expand_rows_clamped) bit-exact against the plain gather on
+    normalised ids, in f32 and bf16, also with -1, V, 2**31-1 and -2**31
+    written into the ids; the unclamped entry likewise on the normalised
+    ids. CUDA-event times of the kernel alone (on the normalised ids),
+    of the whole gather as the scorer ran it before (normalize_ids + K1)
+    and as it runs it now (the one launch), of the plain version,
+    index_select and an empty launch; the device operations of both
+    gathers (torch.profiler); and the bound: the ids, the distinct rows
+    they read and the output, each moved once."""
     v, c = table.shape
-    check(torch.equal(SR.expand_rows(table, idx), SR.expand_rows_plain(table, idx)),
-          f"expand_rows (serving, {label}) differs from table[idx]")
+    idx = SR.normalize_ids(ids.reshape(-1), v).to(torch.int32).contiguous()
+    # the same ids in the same layout (a view keeps its row stride), with
+    # JAX's edge cases in row 0
+    wild = torch.zeros((ids.shape[0], ids.stride(0)), dtype=ids.dtype,
+                       device=ids.device)[:, :ids.shape[1]]
+    wild.copy_(ids)
+    wild[0, :4] = torch.tensor([-1, v, 2**31 - 1, -(2**31)], dtype=ids.dtype)
+    for tb in (table, table.to(torch.bfloat16)):
+        check(torch.equal(SR.expand_rows(tb, idx), SR.expand_rows_plain(tb, idx)),
+              f"expand_rows (serving, {label}, {tb.dtype}) differs from table[idx]")
+        for i2 in (ids, wild):
+            want = SR.expand_rows_plain(tb, SR.normalize_ids(i2.reshape(-1), v))
+            check(torch.equal(SR.expand_rows_clamped(tb, i2).reshape(want.shape), want),
+                  f"expand_rows_clamped (serving, {label}, {tb.dtype}) differs from the plain "
+                  "gather on normalised ids")
+    check(torch.equal(SR.expand_rows_clamped(table, wild).reshape(-1, c)[:4],
+                      table[torch.tensor([v - 1, v - 1, v - 1, 0], device=table.device)]),
+          f"the serving entry ({label}) reads other rows than JAX's gather for -1, V, 2**31-1, "
+          "-2**31")
     n, rows = idx.shape[0], int(torch.unique(idx).numel())
-    nbytes = n * 4 + rows * c * 4 + n * c * 4
-    t = (cuda_ms(lambda: SR.expand_rows(table, idx)), cuda_ms(lambda: SR.expand_rows_plain(table, idx)),
+    nbytes = n * ids.element_size() + rows * c * 4 + n * c * 4
+    t_kernel = cuda_ms(lambda: SR.expand_rows(table, idx))
+    t_before = cuda_ms(lambda: old_serving_gather(table, ids))
+    t = (cuda_ms(lambda: SR.expand_rows_clamped(table, ids)),
+         cuda_ms(lambda: SR.expand_rows_plain(table, SR.normalize_ids(ids.reshape(-1), v))),
          cuda_ms(lambda: torch.index_select(table, 0, idx)))
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     # an empty launch in the same harness: a kernel that spins 0 cycles,
     # the floor under any one-launch gather
     empty = cuda_ms(lambda: torch.cuda._sleep(0))
-    log(f"kernel expand_rows (serving, whole table, {label}): table [{v}, {c}] f32, N={n} ids, "
-        f"{rows} distinct rows: bit-exact  {t[0]:.4f} ms  plain {t[1]:.4f} ms  library "
-        f"(index_select) {t[2]:.4f} ms  bound {bound:.5f} ms (bytes: {nbytes / 1e6:.2f} MB); "
-        f"an empty launch (torch.cuda._sleep(0)) in the same harness {empty:.4f} ms")
+    ops_before = device_ops(lambda: old_serving_gather(table, ids))
+    ops_after = device_ops(lambda: SR.expand_rows_clamped(table, ids))
+    check(ops_after == 1, f"the serving gather ({label}) made {ops_after} device operations, not 1")
+    log(f"kernel expand_rows (serving, whole table, {label}): table [{v}, {c}] f32, ids "
+        f"{tuple(ids.shape)} {ids.dtype} strides {ids.stride()}, N={n}, {rows} distinct rows: "
+        f"bit-exact (f32, bf16, wild ids)  kernel alone {t_kernel:.4f} ms; the gather before "
+        f"(normalize_ids + K1) {t_before:.4f} ms in {ops_before} device operations, now (one "
+        f"launch) {t[0]:.4f} ms in {ops_after}; plain {t[1]:.4f} ms  library (index_select) "
+        f"{t[2]:.4f} ms  bound {bound:.5f} ms (bytes: {nbytes / 1e6:.2f} MB); an empty launch "
+        f"(torch.cuda._sleep(0)) in the same harness {empty:.4f} ms")
     return t, bound
 
 
@@ -1574,15 +1677,15 @@ def deepfm_serving(dev, work):
                 f"of those batches p50 {b50:.3f} p99 {b99:.3f} ms; the same request through the "
                 f"micro-batcher alone (no HTTP) p50 {s50:.3f} p99 {s99:.3f} ms")
 
+        # the device operations of one bucket-512 score (host-to-device
+        # copies, the forward, the copy back)
+        card.score(rows[:512])
+        n_ops = device_ops(lambda: card.score(rows[:512]))
+        log(f"serving DeepFM: one bucket-512 Scorer.score makes {n_ops} device operations "
+            "(torch.profiler)")
         # K1 at the bucket-512 gather: the 26 dynamic fields of 512 rows
-        ids = torch.from_numpy(np.stack([r["feat_ids"][STATIC:] for r in rows[:512]])).to(dev)
-        idx = SR.normalize_ids(ids.reshape(-1), v).to(torch.int32).contiguous()
-        table = card.params["fm_wv"]
-        wild_idx = SR.normalize_ids(torch.tensor([-1, v, 2**31 - 1, -(2**31), 5], device=dev), v)
-        check(torch.equal(SR.expand_rows(table, wild_idx.to(torch.int32)),
-                          table[torch.tensor([v - 1, v - 1, v - 1, 0, 5], device=dev)]),
-              "the serving lookup's normalised ids read other rows than JAX's gather")
-        t, bound = serving_k1("DeepFM bucket 512", table, idx)
+        ids = deepfm_serving_ids(np.stack([r["feat_ids"] for r in rows[:512]]), dev)
+        t, bound = serving_k1("DeepFM bucket 512", card.params["fm_wv"], ids)
     finally:
         srv.stop()
     return t, bound, launches
@@ -1615,12 +1718,7 @@ def aliccp_serving(dev, work, label, width, model_dir):
         f"diff {err:.3e} (bf16 towers, held at 2e-2); card device_ms "
         f"{card.last_timing['device_ms']:.3f}")
     # the model's one padded gather: the common, user, scalar ad and a_int ids
-    keys = ["feat_ids", "u_catids", "u_shopids", "u_brandids", "u_intids", "a_catids",
-            "a_shopids", "a_brandids", "a_intids"]
-    ids = np.concatenate([batch[k].reshape(64, -1) for k in keys], axis=1).reshape(-1)
-    table = card.params["emb"]
-    idx = SR.normalize_ids(torch.from_numpy(ids).to(dev), table.shape[0]).to(torch.int32).contiguous()
-    t, bound = serving_k1(f"{label} bucket 64", table, idx)
+    t, bound = serving_k1(f"{label} bucket 64", card.params["emb"], aliccp_serving_ids(batch, dev))
     del card, cpu
     torch.cuda.empty_cache()
     return t, bound, launches

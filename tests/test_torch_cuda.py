@@ -42,16 +42,34 @@ def _zipf(n, s, seed=0):
     return torch.from_numpy(np.minimum(rng.zipf(1.2, size=n) - 1, s - 1).astype(np.int32))
 
 
-@pytest.mark.parametrize("n,s,k", [(425_984, 28_672, 17), (1_000_003, 777, 17), (513, 40, 5), (4096, 512, 64)])
+# K1's two paths: 16-byte chunks where the row, the row stride and the
+# base are 16-byte aligned (K = 4, 8, 16, 128 in f32 at stride 3K; 8, 16,
+# 128 in bf16), words elsewhere (K = 1, 3, 17, 33; the su[:, 1:17] view).
+# N = 0, 1, a block's ragged tail (255, 257), the DeepFM serving gather
+# (13,312) and the DIN COO lookup (1,310,720).
+_EXPAND_CASES = [(425_984, 28_672, 17, "w"), (1_000_003, 777, 17, "w"), (513, 40, 5, "w"),
+                 (4096, 512, 64, "w")] + [
+    (n, 5_000, k, "w") for n in (0, 1, 255, 257, 13_312, 1_310_720)
+    for k in (1, 3, 4, 8, 16, 17, 33, 128)] + [
+    (n, 114_688, 16, view) for n in (1, 257, 13_312, 1_310_720)
+    for view in ("su16", "su1", "whole")]
+
+
+@pytest.mark.parametrize("n,s,k,view", _EXPAND_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_expand_bit_exact(dev, n, s, k, dtype):
-    wide = torch.randn((s, 3 * k), device=dev).to(dtype)
-    table = wide[:, :k]  # row-strided view, as on the main path
+def test_expand_bit_exact(dev, n, s, k, view, dtype):
+    if view == "w":  # the w columns of a [S, 3K] store, as on the main path
+        table = torch.randn((s, 3 * k), device=dev).to(dtype)[:, :k]
+    elif view == "whole":
+        table = torch.randn((s, k), device=dev).to(dtype)
+    else:  # su[:, 16:32] or su[:, 1:17] of a [S, 48] store: 16-byte aligned or not
+        lo = int(view[2:])
+        table = torch.randn((s, 48), device=dev).to(dtype)[:, lo:lo + k]
     idx = _zipf(n, s).to(dev)
     before = SR.expand_rows.launches
     out = SR.expand_rows(table, idx)
     torch.cuda.synchronize()
-    assert SR.expand_rows.launches == before + 1
+    assert SR.expand_rows.launches == before + (1 if n else 0)
     assert out.dtype == dtype and out.shape == (n, k)
     assert torch.equal(out, table[idx])
 
@@ -134,6 +152,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         SR.expand_rows(table.double(), torch.zeros(3, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         SR.accumulate_rows(torch.randn((4, 3), device=dev).t(), torch.zeros(3, dtype=torch.int32, device=dev), 5)
+    # the serving entry: int ids on the table's device, in rows of adjacent ids
+    with pytest.raises(ValueError, match="int32 or int64"):
+        SR.expand_rows_clamped(table, torch.zeros(3, device=dev))
+    with pytest.raises(ValueError, match="expected"):
+        SR.expand_rows_clamped(table, torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="adjacent ids"):
+        SR.expand_rows_clamped(table, torch.zeros((4, 3), dtype=torch.int32, device=dev).t())
+    with pytest.raises(ValueError, match="0 rows"):
+        SR.expand_rows_clamped(table[:0], torch.zeros(3, dtype=torch.int32, device=dev))
 
 
 def _coo(m, s, g, pad, seed=0, runs=True):
@@ -545,30 +572,43 @@ def _wild_ids(v, shape, seed=0):
     """Ids in [-2v, 2v) with the extremes: -1, v, 2**31 - 1, -2**31."""
     rng = np.random.default_rng(seed)
     ids = rng.integers(-2 * v, 2 * v, size=shape)
-    ids.reshape(-1)[:6] = [-1, v, 2**31 - 1, -(2**31), -v, v - 1]
+    flat = ids.reshape(-1)
+    flat[:6] = [-1, v, 2**31 - 1, -(2**31), -v, v - 1][:flat.size]
     return ids
 
 
 @pytest.mark.parametrize("v,c,view", [(117_581, 17, False), (4_500_000, 16, False),
-                                      (300, 17, True), (5_000, 16, True)])
+                                      (300, 17, True), (5_000, 16, True), (1, 16, False),
+                                      (1, 17, False), (5_000, 16, "bf16")])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
-def test_serving_lookup_bit_exact_on_whole_table(dev, v, c, view, dtype):
+@pytest.mark.parametrize("shape,cols", [
+    pytest.param((512, 26), None, id="contiguous"),
+    pytest.param((512, 39), (13, 39), id="fields-view"),  # DeepFM's ids[:, 13:]
+    pytest.param((512, 39), (5, 6), id="one-column-view"),
+    pytest.param((1,), None, id="one-id"),
+    pytest.param((0,), None, id="no-ids"),
+])
+def test_serving_lookup_bit_exact_on_whole_table(dev, v, c, view, dtype, shape, cols):
     """The serving lookup over a whole [V, C] table (or a fused store's
-    [V, C] view) with ids from outside [0, V): one K1 launch, bit-exact
-    against the plain gather on normalised ids and against the CPU's
-    lookup."""
-    if view:
+    [V, C] view, or a bf16 table) with ids from outside [0, V), -2**31,
+    2**31 - 1 and V among them, contiguous or a view of a wider batch
+    (DeepFM's dynamic fields): one K1 launch (none for no ids),
+    bit-exact against the plain gather on normalised ids and against the
+    CPU's lookup."""
+    if view is True:
         table = torch.randn((v + 1, 3 * c), device=dev)[:-1, :c]
     else:
-        table = torch.randn((v, c), device=dev)
-    ids = torch.from_numpy(_wild_ids(v, (512, 26))).to(dtype).to(dev)
+        table = torch.randn((v, c), device=dev).to(torch.bfloat16 if view else torch.float32)
+    ids = torch.from_numpy(_wild_ids(v, shape)).to(dtype).to(dev)
+    if cols:
+        ids = ids[:, cols[0]:cols[1]]
     lookup = SR.make_serving_lookup()
     before = SR.expand_rows.launches
     got = lookup(table, ids)
     torch.cuda.synchronize()
-    assert SR.expand_rows.launches == before + 1
-    assert got.shape == (512, 26, c)
-    want = SR.expand_rows_plain(table, SR.normalize_ids(ids.reshape(-1), v)).reshape(512, 26, c)
+    assert SR.expand_rows.launches == before + (1 if ids.numel() else 0)
+    assert got.shape == tuple(ids.shape) + (c,) and got.dtype == table.dtype
+    want = SR.expand_rows_plain(table, SR.normalize_ids(ids.reshape(-1), v)).reshape(got.shape)
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), lookup(table.cpu(), ids.cpu()))
 

@@ -147,6 +147,56 @@ def test_serving_lookup_matches_jax_gather(fused_view):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("cols", [None, (13, 39), (5, 6)],
+                         ids=["contiguous", "fields-view", "one-column-view"])
+def test_clamped_gather_matches_jax_gather(dtype, cols):
+    """expand_rows_clamped, the serving gather, reads for ids of either
+    width, contiguous or a view of a wider batch (DeepFM's ids[:, 13:]),
+    the rows JAX's table[ids] reads, int32 extremes included."""
+    v, c = 50, 16
+    rng = np.random.default_rng(1)
+    table = rng.standard_normal((v, c)).astype(np.float32)
+    ids = rng.integers(-2 * v, 2 * v, size=(7, 39)).astype(dtype)
+    ids[0, :9] = _wild(v).astype(dtype)
+    ids[1, 13:22] = _wild(v).astype(dtype)
+    ids[2, 5] = -(2**31)
+    t = torch.from_numpy(ids)
+    if cols:
+        t, ids = t[:, cols[0]:cols[1]], ids[:, cols[0]:cols[1]]
+    want = np.asarray(jnp.asarray(table)[jnp.asarray(ids)])
+    SR.reset_launches()
+    got = SR.expand_rows_clamped(torch.from_numpy(table), t)
+    assert SR.expand_rows.launches == 0  # the CPU takes the plain version
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape,index", [
+    ((6, 9), (slice(None),)),
+    ((512, 39), (slice(None), slice(13, None))),  # DeepFM's dynamic fields
+    ((512, 39), (slice(None), slice(5, 6))),
+    ((4, 8, 10), (slice(None), slice(None), slice(2, 7))),
+    ((40,), (slice(3, 4),)),
+])
+def test_id_rows_addresses_every_id(shape, index):
+    """The clamped kernel reads output row i's id at storage offset
+    (i // cols) * ld + i % cols from the view's first element: that rule,
+    on id_rows' (cols, ld), reaches every id of the view in order."""
+    base = torch.arange(int(np.prod(shape)), dtype=torch.int64).reshape(shape)
+    ids = base[index]
+    cols, ld = SR.id_rows(ids)
+    i = torch.arange(ids.numel())
+    at = ids.storage_offset() + (i // cols) * ld + i % cols
+    assert torch.equal(base.reshape(-1)[at], ids.reshape(-1))
+
+
+def test_id_rows_refuses_what_the_kernel_cannot_read():
+    base = torch.zeros((6, 9), dtype=torch.int32)
+    for ids in (base.t(), base[:, ::2], base[::2, 1:4].t()):
+        with pytest.raises(ValueError, match="adjacent ids"):
+            SR.id_rows(ids)
+
+
 # -------------------------------------------------------------------- codecs
 def test_example_proto_roundtrip_and_bytes_match_jax():
     feats = {"I1": [0.5], "I2": [1.25, -3.5], "C1": [123], "C2": [0, -1, 2**40],

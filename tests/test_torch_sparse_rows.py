@@ -112,6 +112,7 @@ def test_cpu_tensors_never_count_launches():
     rows = torch.from_numpy(rng.standard_normal((20, 5)).astype(np.float32)).requires_grad_(True)
     ids = torch.from_numpy(rng.integers(0, 20, size=(6, 4)).astype(np.int32))
     SR.expand_rows(rows.detach(), ids.reshape(-1))
+    SR.expand_rows_clamped(rows.detach(), ids[:, 1:] - 10)
     SR.accumulate_rows(torch.ones(24, 5), ids.reshape(-1), 20)
     lookup = SR.make_expand_lookup()
     torch.autograd.grad(lookup(rows, ids).sum(), rows)
@@ -124,6 +125,8 @@ def test_wrappers_refuse_other_devices():
     idx = torch.empty((3,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         SR.expand_rows(table, idx)
+    with pytest.raises(ValueError, match="unsupported device"):
+        SR.expand_rows_clamped(table, idx)
     with pytest.raises(ValueError, match="unsupported device"):
         SR.accumulate_rows(torch.empty((3, 4), device="meta"), idx, 8)
 

@@ -3,6 +3,7 @@
 the JAX package's ops/pallas_sparse.py).
 
   expand_rows(table[S,K], idx[N])     -> table[idx]            [N,K]
+  expand_rows_clamped(table[V,K], ids) -> table[JAX's rule(ids)] ids.shape+[K]
   accumulate_rows(g[N,K], idx[N], S)  -> f32 segment sum       [S,K]
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor goes
@@ -19,7 +20,9 @@ each kind serves every S.
 
 Contract (built by data/sparse_batch.SparseBatchMapper): idx values lie
 in [0, S). The kernels do not check it, since a check would force a
-device-to-host sync on every step.
+device-to-host sync on every step. The serving gather's ids are
+untrusted; expand_rows_clamped reads them as JAX's gather does, inside
+the same K1 launch.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ def _lib() -> ctypes.CDLL:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.tr_expand_rows.argtypes = [p, ll, p, ll, i, i, p, p]
     lib.tr_expand_rows.restype = i
+    lib.tr_expand_rows_clamped.argtypes = [p, ll, p, i, ll, ll, ll, i, ll, i, p, p]
+    lib.tr_expand_rows_clamped.restype = i
     lib.tr_accumulate_rows.argtypes = [p, p, ll, i, ll, i, p, p]
     lib.tr_accumulate_rows.restype = i
     lib.tr_accumulate_rows_tile.argtypes = []
@@ -57,31 +62,91 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _check_table(what: str, table: torch.Tensor) -> None:
+    if table.dim() != 2 or table.stride(1) != 1:
+        raise ValueError(f"{what}: table must be 2-D with unit column stride")
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: table dtype {table.dtype} (f32 or bf16)")
+    build.check_k(what, table.shape[1])
+
+
 def expand_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i,:] = table[idx[i],:]. table [S,K] f32 or bf16 with unit
     column stride (any row stride, e.g. a column slice of a wider row
-    store); idx int32 [N]. Bit-exact against table[idx]."""
+    store); idx int32 [N] in [0, S). Bit-exact against table[idx]."""
     if table.device.type == "cpu":
         return expand_rows_plain(table, idx)
     if table.device.type != "cuda":
         raise ValueError(f"expand_rows: unsupported device {table.device}")
     build.check_index("expand_rows", "idx", idx, table.device)
-    if table.dim() != 2 or table.stride(1) != 1:
-        raise ValueError("expand_rows: table must be 2-D with unit column stride")
-    if table.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"expand_rows: table dtype {table.dtype} (f32 or bf16)")
-    k = table.shape[1]
-    build.check_k("expand_rows", k)
-    n = idx.shape[0]
+    _check_table("expand_rows", table)
+    n, k = idx.shape[0], table.shape[1]
     out = torch.empty((n, k), dtype=table.dtype, device=table.device)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().tr_expand_rows(
-            table.data_ptr(), table.stride(0), idx.data_ptr(), n, k,
-            table.element_size(), out.data_ptr(), stream,
-        )
-    build.check_rc("expand_rows", rc)
-    expand_rows.launches += 1
+    if n:
+        with torch.cuda.device(table.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _lib().tr_expand_rows(
+                table.data_ptr(), table.stride(0), idx.data_ptr(), n, k,
+                table.element_size(), out.data_ptr(), stream,
+            )
+        build.check_rc("expand_rows", rc)
+        expand_rows.launches += 1
+    return out
+
+
+def id_rows(ids: torch.Tensor) -> tuple[int, int]:
+    """(cols, ld): ids, in row-major order, as rows of ``cols`` adjacent
+    ids whose starts lie ``ld`` elements apart, the layout the clamped
+    kernel reads in place. A contiguous tensor is one row; a view whose
+    leading dimensions collapse and whose last stride is 1 (DeepFM's
+    dynamic fields, ids[:, 13:]) is rows of its last dimension. Raises
+    for any other layout."""
+    if ids.is_contiguous():
+        return ids.numel(), ids.numel()
+    try:
+        rows = ids.view(-1, ids.shape[-1])
+    except RuntimeError as e:
+        raise ValueError(f"expand_rows_clamped: ids of shape {tuple(ids.shape)} and strides "
+                         f"{ids.stride()} are not rows of adjacent ids") from e
+    if rows.shape[1] == 1:
+        return 1, rows.stride(0)
+    if rows.stride(1) != 1 or rows.stride(0) < rows.shape[1]:
+        raise ValueError(f"expand_rows_clamped: ids of strides {ids.stride()} are not rows of "
+                         "adjacent ids")
+    return rows.shape[1], rows.stride(0)
+
+
+def expand_rows_clamped(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table[normalize_ids(ids, V)] reshaped to ids.shape + (K,), V =
+    table.shape[0]: the gather JAX's table[ids] is, for any int32 or
+    int64 id. On the card one K1 launch reads the ids in place (any
+    layout id_rows takes) and applies the rule to each; nothing else
+    touches them. table as for expand_rows. Bit-exact."""
+    v, k = table.shape[0], table.shape[-1]
+    if table.device.type == "cpu":
+        return expand_rows_plain(table, normalize_ids(ids.reshape(-1), v)).reshape(
+            tuple(ids.shape) + (k,))
+    if table.device.type != "cuda":
+        raise ValueError(f"expand_rows_clamped: unsupported device {table.device}")
+    if ids.device != table.device:
+        raise ValueError(f"expand_rows_clamped: ids on {ids.device}, expected {table.device}")
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"expand_rows_clamped: ids dtype {ids.dtype} (int32 or int64)")
+    _check_table("expand_rows_clamped", table)
+    n = ids.numel()
+    out = torch.empty(tuple(ids.shape) + (k,), dtype=table.dtype, device=table.device)
+    if n:
+        if v == 0:
+            raise ValueError("expand_rows_clamped: a table of 0 rows has no row to read")
+        cols, ld = id_rows(ids)
+        with torch.cuda.device(table.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _lib().tr_expand_rows_clamped(
+                table.data_ptr(), table.stride(0), ids.data_ptr(), ids.element_size(), cols, ld,
+                n, k, v, table.element_size(), out.data_ptr(), stream,
+            )
+        build.check_rc("expand_rows_clamped", rc)
+        expand_rows.launches += 1
     return out
 
 
@@ -187,20 +252,19 @@ def normalize_ids(ids: torch.Tensor, v: int) -> torch.Tensor:
 
 def make_serving_lookup():
     """lookup(table, ids) for scoring over a WHOLE [V, C] table: the
-    scorer's and task_type=infer's gather, through K1 expand_rows.
-    Request ids are untrusted and K1 checks no bounds, so the ids are
-    first normalised as JAX's gather treats them (normalize_ids; V is
-    table.shape[0] of the table passed in, the [V, K] view under
-    --fused_table), then flattened to contiguous int32. Only the gather
-    sees the normalised ids; a model's other uses of its ids (masks) see
-    them as sent. No autograd: forward only. Marked ``static_slice_ok``:
-    a whole table is addressed by position, so DeepFM's static fields
-    still come from the row slice."""
+    scorer's and task_type=infer's gather, one K1 launch
+    (expand_rows_clamped). Request ids are untrusted, so each is read as
+    JAX's gather reads it (normalize_ids; V is table.shape[0] of the
+    table passed in, the [V, K] view under --fused_table), inside the
+    kernel: no device operation touches the ids before it. Only the
+    gather sees the normalised ids; a model's other uses of its ids
+    (masks) see them as sent. No autograd: forward only. Marked
+    ``static_slice_ok``: a whole table is addressed by position, so
+    DeepFM's static fields still come from the row slice."""
 
     @torch.no_grad()
     def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        flat = normalize_ids(ids.reshape(-1), table.shape[0]).to(torch.int32).contiguous()
-        return expand_rows(table, flat).reshape(tuple(ids.shape) + (table.shape[-1],))
+        return expand_rows_clamped(table, ids)
 
     lookup.static_slice_ok = True
     return lookup

@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py              # what the checks run
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of the bare steps
+                                       # (the zoo's too)
     python3 chip_smoke.py --profile --trace=PATH   # and writes their Chrome traces
-                                                   # (PATH, and PATH with _esmm, _din...)
+                                                   # (PATH, and PATH with _esmm, _din,
+                                                   # _zoo_<model>...)
 
 Four main paths, each driven through the CLI with every launch counter
 set to 0 just before and read just after, then serving from their
@@ -14,8 +16,10 @@ on K1 expand_rows / K2 accumulate_rows), ESMM with --mh_coo
 the K7 dma_row_scatter write-back), DIN attention with --mh_coo (K1, K2,
 K5 sorted_segsum, K6 sorted_expand; with --coo_sorted_bwd K5 also takes
 the COO lookup's backward) and DeepFM's dense step with --field_blocks
-(K8 field_block_scatter). Phases, each fatal on failure (exit code 1, no
-result line):
+(K8 field_block_scatter); after the DeepFM one, the libsvm zoo (LR,
+FNN, IPNN, OPNN, NFM, AFM, DCN, DeepMVM) at its published widths on the
+same files, K1/K2 at row widths 33, 257 and 32. Phases, each fatal on
+failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build of every CUDA kernel from tf_repos_tpu_torch/ops/csrc (one
      nvcc per source, started together, sm_90a);
@@ -74,6 +78,13 @@ result line):
         reductions it sends to device memory and the flush chain on the
         one-row fields (field_block_reductions), and its time with every
         id -1, where it adds nothing;
+     f. K1 and K2 at the zoo's row widths, on one Zipf(1.2) batch of the
+        DeepFM point through each model's mapper, all 39 fields through
+        the lookup: width 33 (IPNN, B=16384, row stride 99), 257 (NFM at
+        B=16384 and AFM at its B=4096, stride 771) and 32 (DCN, stride
+        96): K1 bit-exact (f32 and bf16), K2 within 1e-4 * sum_i |g_i| +
+        1e-6, each timed against its plain version and index_select /
+        index_add;
   4. the main paths: ``tf_repos_tpu_torch.main`` --task_type=train at
      full width on the native host input (C++ parsers and duplicate
      combine, data/native.py), DeepFM for >= 20 steps on synthetic Zipf
@@ -101,7 +112,18 @@ result line):
      each bare step timed on pre-mapped batches (DeepFM sparse, with
      catch-up, dense, dense with --field_blocks; ESMM; DIN, with
      --coo_sorted_bwd, with --dma_scatter), and each CLI leg's examples/s
-     beside its bare step's;
+     beside its bare step's; the zoo, after the DeepFM path and on its
+     files (one epoch each), at the published configurations of
+     scripts/zoo_auc.py (deep_ctr/run.sh), bf16 towers, dropout on: FNN,
+     IPNN, OPNN, DCN, DeepMVM at K=32, NFM and AFM at K=256, all on
+     --sparse_table_update --fused_table --pallas_expand, LR on
+     --sparse_table_update alone; B=16384 but OPNN at 2048 (its
+     [B, 760032] deep input) and AFM at 4096 (its [B, 741, 256] pairs),
+     printed as cuts; each trained then evaluated, finite loss and AUC in
+     [0, 1], K1 and K2 once a step (LR: neither), its peak device memory,
+     CLI examples/s and bare step (10 steps on pre-mapped batches); LR
+     again on the CPU, its eval and last train loss within 1e-4 relative
+     of the card's;
   5. 5-step trajectories with f32 towers on the card (kernels) against
      the same steps on the CPU (plain versions), same weights and
      batches: DeepFM at B=1024, ESMM --dma_scatter and DIN (both DIN
@@ -110,7 +132,8 @@ result line):
      another order on the card; 1e-4 is a fifth of one Adam step at lr
      5e-4); DeepFM dense --field_blocks at B=1024: loss within 1e-4
      relative, and every weight within 1e-4 once the CPU's steps take
-     the card's ReLU gates (field_block_trajectory says why);
+     the card's ReLU gates (field_block_trajectory says why); the seven
+     kernel models of the zoo at B=1024, vocab 50k, held as DeepFM's;
   4b. serving, from the main paths' checkpoints: DeepFM at the bench
      width exported and inferred (one te batch) through the CLI, then
      served by PredictionServer(grpc_port=-1, device="cuda"): REST
@@ -127,7 +150,11 @@ result line):
      (JAX's id rule in the kernel) bit-exact in f32 and bf16, wild ids
      included, and exactly one device operation; timed alone, as the
      whole gather before (normalize_ids + K1) and now, beside
-     index_select and an empty launch (torch.cuda._sleep(0));
+     index_select and an empty launch (torch.cuda._sleep(0)); the zoo's
+     IPNN and LR exported and scored (one bucket of 64 va lines) by the
+     card's and a CPU scorer within 2e-2, one K1 launch each (LR's [V]
+     table gathered as its [V, 1] view, timed as the serving gathers
+     above);
 then the kernel report line and, last, the device line.
 """
 
@@ -166,6 +193,7 @@ from tf_repos_tpu_torch.data.sparse_batch import (  # noqa: E402
     MHC_PERM,
     MHC_SROWS,
     MHC_W,
+    UIDS_PREFIX,
     MhCooPacker,
     MhPadBucketer,
     SparseBatchMapper,
@@ -244,6 +272,42 @@ FB_SIZES = (1,) * 13 + (FB_BLOCK,) * 26
 FB_WIDTH = dict(WIDTH, sparse_table_update=False, fused_table=False, pallas_expand=False,
                 field_blocks=",".join(f"{o}:{s}" for o, s in zip(FB_OFFSETS, FB_SIZES)))
 FB_STEPS = 20
+
+# the libsvm zoo, trained on the DeepFM main path's files: each model at
+# its published configuration (scripts/zoo_auc.py:43-81, the reference's
+# deep_ctr/run.sh; LR on run.sh's Adam, lr 5e-4, l2 1e-4), bf16 towers,
+# the lazy-sparse step on the fused w|m|v store with K1/K2 as its lookup;
+# LR on plain lazy Adam (its 1-D table has neither a fused store nor rows
+# for the kernels)
+ZOO_KERNELS = dict(sparse_table_update=True, fused_table=True, pallas_expand=True)
+ZOO_PNN = dict(learning_rate=1e-4, embedding_size=32, deep_layers="256,128", dropout="0.8,0.8",
+               l2_reg=1e-4, **ZOO_KERNELS)
+ZOO = {
+    "LR": dict(model="LR", learning_rate=5e-4, l2_reg=1e-4, sparse_table_update=True),
+    "FNN": dict(ZOO_PNN, model="fnn"),
+    "IPNN": dict(ZOO_PNN, model="ipnn"),
+    # cut: the deep input is [B, 741*32*32 + 39*32] = [B, 760,032], 49.7 GB
+    # a copy in f32 at B=16,384; 6.2 GB at 2,048
+    "OPNN": dict(ZOO_PNN, model="opnn", batch_size=2048),
+    "NFM": dict(model="NFM", learning_rate=5e-5, embedding_size=256, deep_layers="256,128",
+                dropout="0.5,0.5,0.5", l2_reg=1e-3, batch_norm=True, **ZOO_KERNELS),
+    # cut: the [B, 741, 256] pairs take 12.4 GB a copy in f32 at B=16,384
+    "AFM": dict(model="AFM", learning_rate=5e-4, embedding_size=256, attention_layers="128",
+                dropout="0.5,0.5", l2_reg=1e-3, batch_size=4096, **ZOO_KERNELS),
+    "DCN": dict(model="DCN", learning_rate=1e-4, embedding_size=32, deep_layers="512,256",
+                cross_layers=3, dropout="0.8,0.8", l2_reg=1e-5, **ZOO_KERNELS),
+    "DeepMVM": dict(ZOO_PNN, model="DeepMVM"),
+}
+# the kernel report's zoo entries: the model whose lookup phase 3f times,
+# and the models whose CLI launches the entry counts
+ZOO_POINTS = {"width 33": ("IPNN", ("FNN", "IPNN", "OPNN")), "width 257, NFM": ("NFM", ("NFM",)),
+              "width 257, AFM": ("AFM", ("AFM",)), "width 32": ("DCN", ("DCN", "DeepMVM"))}
+ZOO_TRAJ_B = 1024  # the card-vs-CPU trajectories' batch
+
+
+def zoo_width(name: str) -> dict:
+    return dict(dict(feature_size=WIDTH["feature_size"], field_size=WIDTH["field_size"],
+                     optimizer="Adam", compute_dtype="bfloat16", batch_size=B), **ZOO[name])
 
 
 def log(msg: str) -> None:
@@ -354,14 +418,14 @@ def longest_chain(idx: torch.Tensor, tile: int, live=None):
     return int(counts[hot]), int(np.unique(pos[i[pos] == hot] // tile).size)
 
 
-def zipf_batches(n: int, seed: int = 0, batch: int = B):
+def zipf_batches(n: int, seed: int = 0, batch: int = B, vocab: int = WIDTH["feature_size"]):
     """The benchmark's id distribution: Criteo-shaped batches whose ids are
     redrawn as Zipf(1.2) ranks, the 13 static fields kept at ids 1..13."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        b = synthetic_criteo_batch(rng, batch, WIDTH["feature_size"])
-        z = np.minimum(rng.zipf(1.2, size=b["feat_ids"].shape), WIDTH["feature_size"] - 1)
+        b = synthetic_criteo_batch(rng, batch, vocab)
+        z = np.minimum(rng.zipf(1.2, size=b["feat_ids"].shape), vocab - 1)
         b["feat_ids"] = np.where(b["feat_ids"] > 0, z.astype(np.int32), 0)
         b["feat_ids"][:, :STATIC] = np.arange(1, STATIC + 1)
         out.append(b)
@@ -927,6 +991,69 @@ def din_kernel_phase(dev):
     return {"t": t, "bound": bound, "bound_by": "bytes", "err": err}
 
 
+def zoo_kernel_phase(dev):
+    """K1 and K2 at the zoo's row widths (phase 3f): one Zipf(1.2) batch of
+    the DeepFM point through each model's host dedup mapper, all 39 fields
+    through the lookup (no static fields), the rows a [S, K] view of a
+    [S, 3K] w|m|v store as on the main path: width 33 (the PNN family's
+    [V, 1+32], row stride 99, words), 257 (NFM's and AFM's [V, 1+256],
+    stride 771, words) at B=16,384 and at AFM's cut B=4,096, and 32
+    (DCN's and DeepMVM's [V, 32], stride 96, 16-byte chunks). K1
+    bit-exact in f32 and bf16, K2 within 1e-4 * sum_i |g_i| + 1e-6 per
+    element (atomics: run-to-run sum order), each timed against its plain
+    version and index_select / index_add."""
+    raw = zipf_batches(1, seed=11, batch=B)[0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {"t": {}, "bound": {}, "bound_by": {}, "err": {}}
+    for point, (name, _) in ZOO_POINTS.items():
+        b = zoo_width(name)["batch_size"]
+        model = create_model(Config(**zoo_width(name)))
+        (table_name,) = model.sparse_slots()
+        mapped = SparseBatchMapper(model.sparse_slots())({k: v[:b] for k, v in raw.items()})
+        s = int(mapped[UIDS_PREFIX + table_name].shape[0])
+        idx = torch.from_numpy(np.ascontiguousarray(mapped["feat_ids"]).reshape(-1)).to(dev)
+        n = idx.shape[0]
+        k = ZOO[name]["embedding_size"] + (0 if table_name == "emb" else 1)
+        su = torch.randn((s, 3 * k), generator=gen, device=dev)
+        table = su[:, :k]
+        k1_exact(f"(zoo, {point})", su, 0, k, idx)
+        err1 = float((SR.expand_rows(table, idx) - SR.expand_rows_plain(table, idx)).abs().max())
+        g = torch.randn((n, k), generator=gen, device=dev)
+        diff = (SR.accumulate_rows(g, idx, s) - SR.accumulate_rows_plain(g, idx, s)).abs()
+        scale = SR.accumulate_rows_plain(g.abs(), idx, s)
+        err2 = float(diff.max())
+        check(bool((diff <= 1e-4 * scale + 1e-6).all()),
+              f"accumulate_rows (zoo, {point}) differs: max abs err {err2}")
+        zeros = torch.zeros((s, k), device=dev)
+        e1, e2 = f"expand_rows (zoo, {point})", f"accumulate_rows (zoo, {point})"
+        out["t"][e1] = (cuda_ms(lambda: SR.expand_rows(table, idx)),
+                        cuda_ms(lambda: SR.expand_rows_plain(table, idx)),
+                        cuda_ms(lambda: torch.index_select(table, 0, idx)))
+        out["t"][e2] = (cuda_ms(lambda: SR.accumulate_rows(g, idx, s)),
+                        cuda_ms(lambda: SR.accumulate_rows_plain(g, idx, s)),
+                        cuda_ms(lambda: torch.index_add(zeros, 0, idx, g)))
+        # least time: the ids, the [S, K] rows and the [N, K] rows each
+        # moved once; K2's N*K adds are far below the f32 rate
+        nbytes = n * 4 + s * k * 4 + n * k * 4
+        out["bound"][e1] = nbytes / HBM_BYTES_PER_S * 1e3
+        out["bound"][e2] = max(nbytes / HBM_BYTES_PER_S, n * k / F32_FLOPS) * 1e3
+        out["bound_by"][e1] = out["bound_by"][e2] = "bytes"
+        out["err"][e1], out["err"][e2] = err1, err2
+        tile = SR._lib().tr_accumulate_rows_tile()
+        slots, tiles = longest_chain(idx, tile)
+        for e in (e1, e2):
+            ms, plain, lib = out["t"][e]
+            log(f"kernel {e}: {name}'s lookup, B={b} S={s} N={n} K={k} (row stride {3 * k}); "
+                f"max_abs_err {out['err'][e]:.3e}  {ms:.4f} ms  plain {plain:.4f} ms  library "
+                f"{lib:.4f} ms  bound {out['bound'][e]:.4f} ms (bytes: {nbytes / 1e6:.2f} MB; "
+                f"{out['bound'][e] / ms:.2f} of it)")
+        log(f"kernel accumulate_rows (zoo, {point}): longest chain {slots} slots on one id; "
+            f"{tiles} of {-(-n // tile)} tiles of {tile} slots hold it")
+        del su, table, g, diff, scale, zeros
+    torch.cuda.empty_cache()
+    return out
+
+
 def scatter_kernel_phase(dev):
     """K7 at the ESMM point: the uids of one batch through the port's chain
     (ascending, the sentinel V after the live ones), rows written into the
@@ -1416,6 +1543,107 @@ def field_block_main_path(dev, work, rates):
     return launches
 
 
+def zoo_main_path(dev, work):
+    """The libsvm zoo through the CLI on the DeepFM main path's files (one
+    epoch each): train, then --task_type=eval on its checkpoint, with the
+    launch counters zeroed just before the training run and read just
+    after it. The seven kernel models must launch K1 and K2 once a step,
+    LR neither (plain lazy Adam); LR's run is repeated on the CPU, whose
+    eval and last train loss must match the card's within 1e-4 relative.
+    Returns {model: (launches, steps, CLI examples/s, peak bytes)}."""
+    data = os.path.join(work, "data")
+    out = {}
+    t_all = time.perf_counter()
+    for name in ZOO:
+        width = zoo_width(name)
+        b = width["batch_size"]
+        argv = [f"--{k}={v}" for k, v in width.items()] + [
+            "--num_epochs=1", "--log_steps=7", f"--data_dir={data}", f"--model_dir={work}/zoo_{name}/",
+            "--dt_dir=smoke", "--eval_throttle_secs=0", f"--device={dev.type}", "--seed=2018",
+        ]
+        torch.cuda.reset_peak_memory_stats()
+        SR.reset_launches()
+        t0 = time.perf_counter()
+        with StepClock() as clock:
+            res = cli.main(["--task_type=train", *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"expand_rows": SR.expand_rows.launches,
+                    "accumulate_rows": SR.accumulate_rows.launches}
+        peak = torch.cuda.max_memory_allocated()
+        rate = clock.ex_per_s(b)
+        steps = res["step"]
+        ev = cli.main(["--task_type=eval", *argv])
+        log(f"zoo {name} ({width['model']}, K={width.get('embedding_size', '-')}, B={b}"
+            f"{', cut from 16384' if b != B else ''}): {steps} steps in {wall:.1f} s wall, loss "
+            f"{res['loss']:.5f} auc {res['auc']:.5f}; eval loss {ev['loss']:.5f} auc {ev['auc']:.5f}; "
+            f"launches {launches}; CLI {rate:.0f} examples/s; peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        check(steps == MAIN_STEPS * B // b, f"zoo {name} ran {steps} steps")
+        for r in (res, ev):
+            check(math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0, f"zoo {name}: {r}")
+        check(abs(ev["loss"] - res["loss"]) <= 1e-4 * abs(res["loss"]),
+              f"zoo {name}: eval {ev['loss']} differs from the train run's final eval {res['loss']}")
+        want = 0 if name == "LR" else steps
+        for kname, c in launches.items():
+            check(c == want, f"zoo {name}: {kname} launched {c} times in {steps} steps, "
+                             f"expected {want}")
+        if name == "LR":
+            cpu = cli.main(["--task_type=train", *argv, f"--model_dir={work}/zoo_LR_cpu/",
+                            "--device=cpu"])
+            lt_card = last_train_loss(f"{work}/zoo_LR")
+            lt_cpu = last_train_loss(f"{work}/zoo_LR_cpu")
+            rel = max(abs(cpu["loss"] - res["loss"]) / abs(res["loss"]),
+                      abs(lt_cpu - lt_card) / abs(lt_card))
+            log(f"zoo LR card vs CPU CLI: eval loss {res['loss']:.7f} vs {cpu['loss']:.7f}, last "
+                f"train loss {lt_card:.7f} vs {lt_cpu:.7f}: max rel diff {rel:.2e} (held at 1e-4)")
+            check(rel <= 1e-4, f"zoo LR: card and CPU CLI losses differ by {rel}")
+        out[name] = (launches, steps, rate, peak)
+    log(f"zoo phase (train, eval, LR on the CPU): {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+def zoo_bare_step(dev, name, profile):
+    """The bare step of one zoo model on pre-mapped batches already on the
+    card, dropout on (a generator on the card), as the CLI runs it:
+    3 warm-up steps, then 10 timed. profile: None, or the trace path (""
+    for none). Returns (ms, peak bytes)."""
+    cfg = Config(**zoo_width(name))
+    model = create_model(cfg)
+    b = cfg.batch_size
+    mapper = SparseBatchMapper(model.sparse_slots())
+    batches = [to_device(mapper(dict(x)), dev) for x in zipf_batches(4, seed=3, batch=b)]
+    torch.cuda.reset_peak_memory_stats()
+    params, mstate = model.init(torch.Generator().manual_seed(0))
+    params = tree_map(lambda x: x.to(dev), params)
+    mstate = tree_map(lambda x: x.to(dev), mstate)
+    tx = make_optimizer("Adam", cfg.learning_rate)
+    sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=cfg.fused_table)
+    opt = SP.init_opt_state(model, tx, sopt, params)
+    step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup()
+                                      if cfg.pallas_expand else None)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for i in range(3):
+        params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4], gen)
+    torch.cuda.synchronize()
+    n = 10
+    t0 = time.perf_counter()
+    for i in range(n):
+        params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4], gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(float(loss)), f"bare zoo {name} step loss {float(loss)}")
+    log(f"bare step zoo {name} (B={b}): {ms:.3f} ms/step, {b / ms * 1e3:.0f} examples/s (peak mem "
+        f"{peak / 2**30:.2f} GiB)")
+    if profile is not None:
+        trace = os.path.splitext(profile)[0] + f"_zoo_{name}.json" if profile else ""
+        profile_step(f"zoo {name}", lambda i: step(params, opt, mstate, batches[i % 4], gen), trace)
+    del params, opt, mstate, batches
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
 # ------------------------------------------------------------- phase 4b
 SERVE_BUCKETS = (1, 8, 64, 512)
 LAT_CALLS = 50  # scorer calls a bucket, and HTTP requests a size, for the latency
@@ -1465,16 +1693,26 @@ def held_rel(name, got, want, rtol):
 
 def device_ops(fn) -> int:
     """The device operations (kernels, copies, fills) of one call of fn,
-    from torch.profiler, as profile_step counts them."""
+    from torch.profiler, as profile_step counts them. fn always launches,
+    so a trace with no device operation at all is one the profiler
+    missed (seen once in a run of this script, where the same count read
+    1 in two other runs): it is taken again, at most three times in all,
+    and each miss is printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    n = 0
+    for attempt in range(3):
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+        if n:
+            break
+        log(f"device_ops: the profiler traced no device operation (attempt {attempt + 1} of 3)")
+    return n
 
 
 def deepfm_serving_ids(feat_ids, dev):
@@ -1724,17 +1962,53 @@ def aliccp_serving(dev, work, label, width, model_dir):
     return t, bound, launches
 
 
+def zoo_serving(dev, work):
+    """IPNN (a fused [V, 1+K] table) and LR (a 1-D [V] table, gathered as
+    its [V, 1] view) from their zoo checkpoints: exported through the
+    CLI, one bucket of 64 va lines scored by the card's and a CPU scorer,
+    each gather one K1 launch. Returns LR's serving K1 entry (times,
+    bound, launches)."""
+    with open(os.path.join(work, "data", "va.libsvm"), "rb") as f:
+        lines = [next(f) for _ in range(64)]
+    ids, vals, _ = parse_libsvm_lines(lines, WIDTH["field_size"])
+    inst = [{"feat_ids": ids[i], "feat_vals": vals[i]} for i in range(64)]
+    res = None
+    for name in ("IPNN", "LR"):
+        argv = [f"--{k}={v}" for k, v in zoo_width(name).items()] + [
+            f"--data_dir={work}/data", f"--model_dir={work}/zoo_{name}/", "--dt_dir=smoke",
+            f"--device={dev.type}", "--seed=2018"]
+        servable = os.path.dirname(cli.main(["--task_type=export", *argv]))
+        card = Scorer(servable, batch_buckets=(64,), device=dev.type)
+        cpu = Scorer(servable, batch_buckets=(64,), warmup=False, device="cpu")
+        SR.reset_launches()
+        got = card.score(inst)
+        launches = SR.expand_rows.launches
+        err = held_rel(f"zoo {name} card vs CPU scorer", got["prob"], cpu.score(inst)["prob"], 2e-2)
+        log(f"serving zoo {name}: one bucket of 64 va lines, expand_rows launched {launches} "
+            f"time(s); card vs CPU scorer max abs diff {err:.3e} (bf16 towers, held at 2e-2)")
+        check(launches == 1, f"zoo {name}: the scorer's gather launched K1 {launches} times, not 1")
+        if name == "LR":
+            t, bound = serving_k1("LR bucket 64", card.params["w"][:, None],
+                                  torch.from_numpy(ids).to(dev))
+            res = (t, bound, launches)
+        del card, cpu
+    return res
+
+
 def serving_phase(dev, work):
-    """Serving on the card (phase 4b): DeepFM through the HTTP server, ESMM
-    and DIN through the scorer. Returns the kernel report's phase and
-    launch counts for the serving entries of K1."""
+    """Serving on the card (phase 4b): DeepFM through the HTTP server, ESMM,
+    DIN and, from the zoo, IPNN and LR through the scorer. Returns the
+    kernel report's phase and launch counts for the serving entries of
+    K1."""
     t0 = time.perf_counter()
     names = {"DeepFM": "expand_rows (serving, whole table, DeepFM)",
              "ESMM": "expand_rows (serving, whole table, ESMM)",
              "DIN": "expand_rows (serving, whole table, DIN)"}
+    names["LR"] = "expand_rows (serving, whole table, LR)"
     res = {"DeepFM": deepfm_serving(dev, work),
            "ESMM": aliccp_serving(dev, work, "ESMM", ESMM_WIDTH, "esmm_model"),
-           "DIN": aliccp_serving(dev, work, "DIN", DIN_WIDTH, "din_model")}
+           "DIN": aliccp_serving(dev, work, "DIN", DIN_WIDTH, "din_model"),
+           "LR": zoo_serving(dev, work)}
     log(f"serving phase: {time.perf_counter() - t0:.1f} s")
     phase = {"t": {names[m]: r[0] for m, r in res.items()},
              "bound": {names[m]: r[1] for m, r in res.items()}, "bound_by": "bytes",
@@ -1873,35 +2147,55 @@ def profile_step(label: str, run, trace: str):
 
 
 # ------------------------------------------------------------------ phase 5
-def card_vs_cpu(label, cfg, mapped, dev, dense):
+def card_vs_cpu(label, cfg, mapped, dev, dense, gates=False):
     """5 sparse steps on the card (kernels) and on the CPU (plain versions)
-    from the same weights and mapped batches; ``dense(params)`` picks the
-    dense leaves to compare."""
+    from the same weights and mapped batches, step by step; ``dense(params)``
+    picks the dense leaves to compare. Held: the loss within 1e-4
+    relative, the w|m|v rows and the dense leaves within 1e-4. gates: a
+    third run, on the CPU with the card's ReLU gates (ReluGates), is the
+    one whose weights are held; the CPU's own-gate weights and the count
+    of its gates that differ from the card's are printed, not held
+    (field_block_trajectory says why a gate within f32 round-off of 0
+    moves the weights by steps of lr, not by round-off)."""
     model = create_model(cfg)
     (table,) = model.sparse_slots()
     p0, m0 = model.init(torch.Generator().manual_seed(3))
+    legs = [("card", dev.type, "record"), ("cpu", "cpu", "count")]
+    if gates:
+        legs.insert(1, ("cpu, card's gates", "cpu", "replay"))
     runs = {}
-    for where in ("cpu", dev.type):
+    for name, where, mode in legs:
         d = torch.device(where)
         params = tree_map(lambda x: x.clone().to(d), p0)
-        mstate = tree_map(lambda x: x.clone().to(d), m0)
         tx = make_optimizer("Adam", cfg.learning_rate)
         sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=True,
                                             dma_scatter=cfg.dma_scatter)
-        opt = SP.init_opt_state(model, tx, sopt, params)
-        step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
-        losses = []
-        for b in mapped:
-            params, opt, mstate, loss = step(params, opt, mstate, to_device(b, d))
-            losses.append(float(loss))
-        runs[where] = (losses, opt["sparse"][table]["wmv"].cpu(), [x.cpu() for x in dense(params)])
-    (lc, wc, dc), (lg, wg, dg) = runs["cpu"], runs[dev.type]
-    rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
-    werr = float((wc - wg).abs().max())
-    derr = max(float((a - b).abs().max()) for a, b in zip(dc, dg))
-    log(f"trajectory {label} f32, 5 steps: losses cpu {lc} card {lg}; max rel loss diff "
-        f"{rel:.3e}, max |wmv| diff {werr:.3e}, dense diff {derr:.3e}")
+        runs[name] = {"d": d, "params": params, "opt": SP.init_opt_state(model, tx, sopt, params),
+                      "mstate": tree_map(lambda x: x.clone().to(d), m0), "mode": mode,
+                      "step": SP.build_sparse_train_step(model, tx, sopt,
+                                                         lookup=SR.make_expand_lookup())}
+    relu = ReluGates() if gates else None
+    step_legs(runs, mapped, relu)
+
+    def diff(a, b):
+        ra, rb = runs[a], runs[b]
+        return (max(abs(x - y) / abs(x) for x, y in zip(ra["losses"], rb["losses"])),
+                float((ra["opt"]["sparse"][table]["wmv"].cpu()
+                       - rb["opt"]["sparse"][table]["wmv"].cpu()).abs().max()),
+                max(float((x.cpu() - y.cpu()).abs().max())
+                    for x, y in zip(dense(ra["params"]), dense(rb["params"]))))
+
+    rel, werr, derr = diff("cpu", "card")
+    log(f"trajectory {label} f32, 5 steps: losses cpu {runs['cpu']['losses']} card "
+        f"{runs['card']['losses']}; max rel loss diff {rel:.3e}, max |wmv| diff {werr:.3e}, dense "
+        f"diff {derr:.3e}" + (" (not held)" if gates else ""))
     check(rel <= 1e-4, f"{label}: card vs CPU loss trajectory differs: {rel}")
+    if gates:
+        rel, werr, derr = diff("cpu, card's gates", "card")
+        log(f"trajectory {label}, the CPU with the card's ReLU gates: {relu.flips} of the CPU's "
+            f"own gates differ from the card's; max rel loss diff {rel:.3e}, max |wmv| diff "
+            f"{werr:.3e}, dense diff {derr:.3e}")
+        check(rel <= 1e-4, f"{label}: card vs CPU with the card's gates: loss differs: {rel}")
     check(werr <= 1e-4 and derr <= 1e-4, f"{label}: card vs CPU weights differ: {werr} {derr}")
 
 
@@ -1931,6 +2225,57 @@ def din_trajectory(dev):
         card_vs_cpu(f"DIN --mh_coo{' --coo_sorted_bwd' if sorted_bwd else ''} B=512 vocab 50k "
                     "pad 64", cfg, [chain(b) for b in raw], dev,
                     lambda p: [p["out"]["w"], p["att_out"]["w"], p["att_mlp"]["layers"][0]["dense"]["w"]])
+
+
+def zoo_trajectory(dev):
+    """card_vs_cpu for the seven kernel models of the zoo: each at its
+    published width on a 50k vocab, B=1,024, f32 towers, no dropout, on
+    Zipf(1.2) batches through its mapper; beside the w|m|v rows, the out
+    projection and the first tower layer (DCN's cross weights, DeepMVM's
+    field bias). OPNN's weights are held with the card's ReLU gates on
+    the CPU: each of its first layer's 262,144 pre-activations sums
+    760,032 products, and those within f32 round-off of 0 take their gate
+    by the order of the sums."""
+    first = lambda p: p["mlp"]["layers"][0]["dense"]["w"]  # noqa: E731
+    dense = {"AFM": lambda p: [p["out"]["w"], p["att_mlp"]["layers"][0]["dense"]["w"]],
+             "DCN": lambda p: [p["out"]["w"], first(p), p["cross_w"]],
+             "DeepMVM": lambda p: [p["out"]["w"], first(p), p["mvm_b"]]}
+    raw = zipf_batches(5, seed=7, batch=ZOO_TRAJ_B, vocab=50_000)
+    for name in ZOO:
+        if name == "LR":
+            continue
+        t0 = time.perf_counter()
+        cfg = Config(**dict(zoo_width(name), feature_size=50_000, batch_size=ZOO_TRAJ_B,
+                            compute_dtype="float32"))
+        mapper = SparseBatchMapper(create_model(cfg).sparse_slots())
+        card_vs_cpu(f"zoo {name} B={ZOO_TRAJ_B} vocab 50k", cfg, [mapper(dict(b)) for b in raw], dev,
+                    dense.get(name, lambda p: [p["out"]["w"], first(p)]), gates=name == "OPNN")
+        log(f"trajectory zoo {name}: {time.perf_counter() - t0:.1f} s")
+
+
+def step_legs(runs, batches, gates=None):
+    """Steps each run (a dict of its device "d", "params", "opt", "mstate"
+    and "step") through the batches, batch by batch, in the order of
+    ``runs``, and collects its "losses". gates: a ReluGates put in place
+    of torch.relu for the runs, each taking the gate mode of its "mode"
+    key (the first run records each batch's gates)."""
+    for r in runs.values():
+        r["losses"] = []
+    if gates:
+        torch.relu = gates
+    try:
+        for b in batches:
+            if gates:
+                gates.gates = []
+            for r in runs.values():
+                if gates:
+                    gates.mode, gates.i = r["mode"], 0
+                r["params"], r["opt"], r["mstate"], loss = r["step"](
+                    r["params"], r["opt"], r["mstate"], to_device(b, r["d"]))
+                r["losses"].append(float(loss))
+    finally:
+        if gates:
+            torch.relu = gates.relu
 
 
 class ReluGates:
@@ -1979,26 +2324,16 @@ def field_block_trajectory(dev):
     p0, m0 = model.init(torch.Generator().manual_seed(3))
     k8 = FB.make_field_block_lookup(cfg.feature_size, FB_OFFSETS, FB_SIZES, use_bf16=False)
     runs = {}
-    for label, where in (("card", dev.type), ("cpu, card's gates", "cpu"), ("cpu", "cpu")):
+    for label, where, mode in (("card", dev.type, "record"), ("cpu, card's gates", "cpu", "replay"),
+                               ("cpu", "cpu", "count")):
         d = torch.device(where)
         params = tree_map(lambda x: x.clone().to(d), p0)
         tx = make_optimizer("Adam", cfg.learning_rate)
-        runs[label] = {"d": d, "params": params, "opt": tx.init(params),
+        runs[label] = {"d": d, "params": params, "opt": tx.init(params), "mode": mode,
                        "mstate": tree_map(lambda x: x.clone().to(d), m0),
-                       "step": L.build_train_step(model, tx, lookup=k8), "losses": []}
+                       "step": L.build_train_step(model, tx, lookup=k8)}
     gates = ReluGates()
-    torch.relu = gates
-    try:
-        for b in batches:
-            gates.gates = []
-            for label, mode in (("card", "record"), ("cpu, card's gates", "replay"), ("cpu", "count")):
-                r = runs[label]
-                gates.mode, gates.i = mode, 0
-                r["params"], r["opt"], r["mstate"], loss = r["step"](
-                    r["params"], r["opt"], r["mstate"], to_device(b, r["d"]))
-                r["losses"].append(float(loss))
-    finally:
-        torch.relu = gates.relu
+    step_legs(runs, batches, gates)
 
     def diff(a, b):
         ra, rb = runs[a], runs[b]
@@ -2059,8 +2394,10 @@ def main() -> int:
         dkp = din_kernel_phase(dev)
         skp = scatter_kernel_phase(dev)
         fkp = field_block_kernel_phase(dev)
+        zkp = zoo_kernel_phase(dev)
         rates = {}  # host-input stage times and CLI examples/s, printed with the bare steps
         launches = main_path(dev, work, rates)
+        zoo = zoo_main_path(dev, work)
         elaunches = esmm_main_path(dev, work, rates)
         dlaunches = din_main_path(dev, work, rates)
         flaunches = field_block_main_path(dev, work, rates)
@@ -2069,7 +2406,9 @@ def main() -> int:
         ebare = esmm_bare_step(dev, profile)
         dbare = {sb: din_bare_step(dev, profile, sb) for sb in (False, True)}
         dbare["dma"] = din_bare_step(dev, profile, False, dma_scatter=True)
+        zbare = {name: zoo_bare_step(dev, name, profile) for name in ZOO}
         trajectory(dev)
+        zoo_trajectory(dev)
         esmm_trajectory(dev)
         din_trajectory(dev)
         field_block_trajectory(dev)
@@ -2100,6 +2439,14 @@ def main() -> int:
          flaunches),
     ] + [(name, "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164", serve_kp, serve_launches)
          for name in serve_launches]
+    # K1/K2 at the zoo's widths, with the launches of the zoo CLI runs that
+    # ran at each width
+    zoo_launches = {f"{k} (zoo, {point})": sum(zoo[m][0][k] for m in models)
+                    for point, (_, models) in ZOO_POINTS.items()
+                    for k in ("expand_rows", "accumulate_rows")}
+    kernels += [(name, "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164"
+                 if name.startswith("expand") else "tf_repos_tpu/ops/pallas_sparse.py:208", zkp,
+                 zoo_launches) for name in zoo_launches]
     report = []
     for name, src, replaces, phase, counts in kernels:
         ms, plain, lib = phase["t"][name]
@@ -2131,6 +2478,12 @@ def main() -> int:
         log(f"CLI vs bare step, {leg}: {rates[leg]:.0f} vs {r:.0f} examples/s "
             f"({rates[leg] / r:.3f} of the bare step); the input alone {rates[leg + ' host']:.0f} "
             f"({rates[leg + ' host'] / r:.3f})")
+    for name, (ms, peak) in zbare.items():
+        b = zoo_width(name)["batch_size"]
+        log(f"zoo {name} at B={b}: CLI {zoo[name][2]:.0f} examples/s vs bare step {ms:.3f} ms = "
+            f"{b / ms * 1e3:.0f} examples/s ({zoo[name][2] / (b / ms * 1e3):.3f} of the bare step); "
+            f"peak device memory CLI {zoo[name][3] / 2**30:.2f} GiB, bare step {peak / 2**30:.2f} "
+            f"GiB on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -131,6 +131,64 @@ def test_main_infer_matches_jax(tmp_path, data_dir, model):
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)  # pred.txt's 6 decimals
 
 
+# the libsvm zoo at the CLI tests' width, each on its own flags: the
+# lazy-sparse step on the fused store and the row kernels' lookup (their
+# plain versions here), LR on plain lazy Adam
+ZOO_SPARSE = ["--sparse_table_update=true", "--fused_table=true", "--pallas_expand=true"]
+ZOO_FLAGS = {
+    "LR": ["--sparse_table_update=true"],
+    "fnn": ZOO_SPARSE,
+    "ipnn": ZOO_SPARSE,
+    "opnn": ZOO_SPARSE,
+    "NFM": [*ZOO_SPARSE, "--batch_norm=true", "--dropout=1.0,1.0,1.0"],
+    "AFM": [*ZOO_SPARSE, "--attention_layers=8"],
+    "DCN": [*ZOO_SPARSE, "--cross_layers=2"],
+    "DeepMVM": ZOO_SPARSE,
+}
+
+
+@pytest.mark.parametrize("model", list(ZOO_FLAGS))
+def test_main_zoo_train_eval_infer(tmp_path, data_dir, model):
+    """Each zoo model through the CLI: train then eval (the same loss and
+    AUC from the checkpoint), then infer, whose pred.txt equals the JAX
+    CLI's on the same te* lines and weights within 2e-5 (the JAX harness
+    infers from its seed's init, LR's replaced by numpy weights, the port
+    from a checkpoint of those weights converted)."""
+    flags = [*FLAGS[1:], f"--model={model}", *ZOO_FLAGS[model], f"--data_dir={data_dir}",
+             "--dt_dir=x", "--device=cpu"]
+    train = [*flags, f"--model_dir={tmp_path}/m/"]
+    res = M.main(["--task_type=train", *train])
+    assert res["step"] == 5 and np.isfinite(res["loss"]) and 0.0 <= res["auc"] <= 1.0
+    ev = M.main(["--task_type=eval", *train])
+    assert ev["loss"] == pytest.approx(res["loss"], rel=1e-6)
+    assert ev["auc"] == pytest.approx(res["auc"], rel=1e-6)
+
+    data = tmp_path / "infer_data"
+    data.mkdir()
+    shutil.copy(data_dir / "va.libsvm", data / "te.libsvm")
+    argv = [*flags, f"--data_dir={data}", f"--model_dir={tmp_path}/i/"]
+    cfg = parse_config(argv)
+    jh = JaxHarness(JaxConfig(**{k: v for k, v in vars(cfg).items() if k != "device"})
+                    .replace(model_dir=f"{tmp_path}/jax/"))
+    jts = jh.init_train_state()
+    if model == "LR":  # LR's init is all zeros: numpy weights on both sides
+        w = np.random.default_rng(0).standard_normal(400).astype(np.float32)
+        jts["params"]["w"] = jax.numpy.asarray(w)
+        jh.restore_or_init = lambda ckpt: jts
+    want = np.loadtxt(jh.infer(out_path=str(tmp_path / "jax_pred.txt")))
+    h = Harness(cfg)
+    state = h.init_train_state()
+    tp, tm = params_from_jax(jax.tree.map(np.asarray, jts["params"]),
+                             jax.tree.map(np.asarray, jts["mstate"]))
+    for dst, src in zip(tree_leaves(state["params"]), tree_leaves(tp)):
+        dst.copy_(src)
+    state["mstate"] = tm
+    CheckpointManager(h.model_dir).save(0, state)
+    got = np.loadtxt(M.main(["--task_type=infer", *argv]))
+    assert got.shape == want.shape == (64,)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)  # pred.txt's 6 decimals
+
+
 def test_main_export_and_eval_loop(tmp_path, data_dir):
     common = [*FLAGS, f"--data_dir={data_dir}", f"--model_dir={tmp_path}/m/", "--dt_dir=x",
               "--device=cpu", "--sparse_table_update=true", "--fused_table=true",

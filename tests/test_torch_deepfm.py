@@ -85,7 +85,7 @@ def test_bf16_towers_forward_close():
     np.testing.assert_allclose(ot["logits"].numpy(), np.asarray(oj["logits"]), rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("name", ["AFM", "PNN", "NFM", "wide_n_deep", "DCN"])
+@pytest.mark.parametrize("name", ["wide_n_deep", "widedeep", "wdl", "wide", "deep"])
 def test_unported_models_raise(name):
     with pytest.raises(NotImplementedError, match=name):
         create_model(Config(model=name))

@@ -65,7 +65,14 @@ SMALL = {
                  deep_layers="8,4", dropout="1.0,1.0", multi_hot_pad=8),
     "DIN": dict(model="DIN", feature_size=600, field_size=11, embedding_size=4,
                 deep_layers="8,4", attention_layers="8", dropout="1.0,1.0", multi_hot_pad=8),
+    # the zoo on libsvm lines: LR's 1-D table, a fused [V, 1+K] table, a [V, K] one
+    "LR": dict(model="LR", feature_size=300, field_size=39),
+    "IPNN": dict(model="ipnn", feature_size=300, field_size=39, embedding_size=4,
+                 deep_layers="8,4", dropout="1.0,1.0"),
+    "DCN": dict(model="DCN", feature_size=300, field_size=39, embedding_size=4,
+                deep_layers="8,4", dropout="1.0,1.0", cross_layers=2),
 }
+LIBSVM = ("DeepFM", "LR", "IPNN", "DCN")
 ALICCP_INPUTS = ("feat_ids", "a_catids", "a_shopids", "a_brandids", "a_intids",
                  "u_catids", "u_catvals", "u_shopids", "u_shopvals", "u_brandids",
                  "u_brandvals", "u_intids", "u_intvals")
@@ -80,7 +87,7 @@ def _wild(v):
 def _instances(name, n, seed=0, wild=False):
     kw = SMALL[name]
     v, rng = kw["feature_size"], np.random.default_rng(seed)
-    if name == "DeepFM":
+    if name in LIBSVM:
         ids = rng.integers(1, v, size=(n, kw["field_size"]))
         vals = (rng.random((n, kw["field_size"])) + 0.5).astype(np.float32)
         if wild:
@@ -144,6 +151,25 @@ def test_serving_lookup_matches_jax_gather(fused_view):
     got = lookup(t, torch.from_numpy(ids))
     assert lookup.static_slice_ok and not got.requires_grad
     assert SR.expand_rows.launches == 0  # the CPU takes the plain version
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_serving_lookup_on_a_1d_table_matches_jax_gather(dtype):
+    """LR's [V] table: the serving lookup gathers its [V, 1] view and
+    drops the last axis, reading for any id the entry JAX's table[ids]
+    reads."""
+    v = 50
+    rng = np.random.default_rng(2)
+    table = rng.standard_normal(v).astype(np.float32)
+    ids = rng.integers(-2 * v, 2 * v, size=(4, 39)).astype(dtype)
+    ids[0, :9] = _wild(v).astype(dtype)
+    ids[1, :3] = [-1, v, 2**31 - 1]
+    want = np.asarray(jnp.asarray(table)[jnp.asarray(ids)])
+    SR.reset_launches()
+    got = SR.make_serving_lookup()(torch.from_numpy(table), torch.from_numpy(ids))
+    assert SR.expand_rows.launches == 0  # the CPU takes the plain version
+    assert got.shape == want.shape == (4, 39)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -236,10 +262,13 @@ def test_predict_proto_roundtrip_and_bytes_match_jax():
 def _jax_weights(name, seed=0):
     jm = jax_create_model(JaxConfig(**SMALL[name]))
     jp, js = jm.init(jax.random.PRNGKey(seed))
+    if name == "LR":  # its init is all zeros
+        jp["w"] = jnp.asarray(np.random.default_rng(seed).standard_normal(jp["w"].shape),
+                              jnp.float32)
     return jm, jp, js
 
 
-@pytest.mark.parametrize("name", ["DeepFM", "ESMM", "DIN"])
+@pytest.mark.parametrize("name", ["DeepFM", "ESMM", "DIN", "LR", "IPNN", "DCN"])
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_export_loads_and_scores_in_the_other_package(tmp_path, name, writer):
     """A servable written by either package loads in both; on the same
@@ -274,7 +303,7 @@ def test_export_loads_and_scores_in_the_other_package(tmp_path, name, writer):
     _close(port.score(inst), ref.score(inst))
 
 
-@pytest.mark.parametrize("name", ["DeepFM", "ESMM", "DIN"])
+@pytest.mark.parametrize("name", ["DeepFM", "ESMM", "DIN", "LR"])
 def test_out_of_range_and_negative_ids_scored_as_jax(tmp_path, name):
     jm, jp, js = _jax_weights(name, seed=3)
     d = str(tmp_path / "servable")

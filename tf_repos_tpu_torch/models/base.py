@@ -47,6 +47,9 @@ class CtrModel:
     """Base for single-task CTR models (sigmoid over one logit)."""
 
     name: str = "base"
+    # True when the sparse table is 1-D [V] (LR): it has no fused w|m|v
+    # row store and no [S, K] rows for the row kernels
+    flat_table: bool = False
 
     def __init__(self, cfg: Config):
         self.cfg = cfg

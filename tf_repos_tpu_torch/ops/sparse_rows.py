@@ -260,10 +260,14 @@ def make_serving_lookup():
     gather sees the normalised ids; a model's other uses of its ids
     (masks) see them as sent. No autograd: forward only. Marked
     ``static_slice_ok``: a whole table is addressed by position, so
-    DeepFM's static fields still come from the row slice."""
+    DeepFM's static fields still come from the row slice. A 1-D [V]
+    table (LR's) is gathered as its [V, 1] view and the last axis
+    dropped, which is what JAX's table[ids] returns."""
 
     @torch.no_grad()
     def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        if table.dim() == 1:
+            return expand_rows_clamped(table[:, None], ids)[..., 0]
         return expand_rows_clamped(table, ids)
 
     lookup.static_slice_ok = True

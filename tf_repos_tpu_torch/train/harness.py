@@ -1,5 +1,6 @@
 """Trainer harness (counterpart of the JAX package's train/harness.py) on
-one device: DeepFM on libsvm, ESMM and DIN on Ali-CCP sample lines.
+one device: the libsvm models (LR, DeepFM, the PNN family, NFM, AFM,
+DCN, DeepMVM) and ESMM and DIN on Ali-CCP sample lines.
 
   train     -> train loop with periodic eval (eval_throttle_secs),
                checkpoints (torch.save under model_dir), a final eval on
@@ -17,7 +18,9 @@ The step is the lazy sparse step (train/sparse.py) under
 --sparse_table_update, with the hand-written expand/accumulate kernels
 as its inner lookup under --pallas_expand and the row-scatter write-back
 under --dma_scatter; the dense step otherwise, whose table gradient goes
-through the field-block scatter kernel under --field_blocks.
+through the field-block scatter kernel under --field_blocks. LR's 1-D
+table takes plain lazy Adam or the dense step: --fused_table and
+--pallas_expand raise for it.
 Under --mh_coo the training batches' multi-hot fields are packed into a
 COO triplet on the host (data/sparse_batch.MhCooPacker, before the dedup
 mapper), which the COO pool kernels consume (ESMM), or the sorted-stream
@@ -151,6 +154,16 @@ class Harness:
         self.model = create_model(cfg)
         self.tx = make_optimizer(cfg.optimizer, cfg.learning_rate)
         self.model_dir = cfg.resolved_model_dir() or "./model_ckpt"
+        if self.model.flat_table:
+            for flag, on in (("--fused_table", cfg.fused_table),
+                             ("--pallas_expand", cfg.pallas_expand)):
+                if on:
+                    raise ValueError(
+                        f"{flag}: {self.model.name}'s table is 1-D [V], which has no fused "
+                        "w|m|v row store and no [S, K] rows for the row kernels (the JAX "
+                        "package cannot run it there either); use --sparse_table_update "
+                        "alone or the dense step"
+                    )
         self._sparse_slots = None
         if cfg.sparse_table_update:
             self._sparse_slots = self.model.sparse_slots()

@@ -247,8 +247,11 @@ def build_sparse_train_step(model, tx_dense, sopt: SparseRowOpt, lookup=None):
         tables, rest = split_params(params, slot_names)
         u = {t: batch[UIDS_PREFIX + t] for t in slot_names}
         su = {t: sopt.gather(opt_state["sparse"][t], u[t]) for t in slot_names}
+        # the fused store's rows carry m and v beside w; a plain store's
+        # are the table's rows as they are (LR's 1-D table gives [S])
         rows = {
-            t: su[t][:, : tables[t].shape[-1]].detach().requires_grad_(True)
+            t: (su[t][:, : tables[t].shape[-1]] if sopt.fused else su[t])
+            .detach().requires_grad_(True)
             for t in slot_names
         }
         rest_leaves = tree_leaves(rest)

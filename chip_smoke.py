@@ -18,8 +18,11 @@ K5 sorted_segsum, K6 sorted_expand; with --coo_sorted_bwd K5 also takes
 the COO lookup's backward) and DeepFM's dense step with --field_blocks
 (K8 field_block_scatter); after the DeepFM one, the libsvm zoo (LR,
 FNN, IPNN, OPNN, NFM, AFM, DCN, DeepMVM) at its published widths on the
-same files, K1/K2 at row widths 33, 257 and 32. Phases, each fatal on
-failure (exit code 1, no result line):
+same files, K1/K2 at row widths 33, 257 and 32; then DeepFM under the
+other optimizers' lazy row forms (Adagrad, FTRL, Momentum, GD: K1/K2 on
+the plain [V+1, 17] store) and Wide&Deep (the canned wdl optimizer, the
+dense step, no kernel in training; K1 at its two serving gathers).
+Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build of every CUDA kernel from tf_repos_tpu_torch/ops/csrc (one
      nvcc per source, started together, sm_90a);
@@ -34,7 +37,9 @@ failure (exit code 1, no result line):
         hottest row of 425,984 slots; and at the edges of its
         sort-and-reduce (one tile on one id; N = T-1, T, T+1 at K = 5,
         16, 17, 48; +-0 rows and a NaN row, which must come out NaN as
-        with index_add_);
+        with index_add_); and K1 and K2 at the same ids on the unfused
+        store of the other optimizers' lazy rows (the rows a contiguous
+        [S, 17] block, stride 17), held and timed as in f;
      b. ESMM at the published Ali-CCP point (4.5M vocab, B=4096, K=16,
         pad 512, published multi-hot lengths, Zipf(1.2) ids, the port's
         packer with combine and its mapper) plus a shuffled-triplet, a
@@ -123,7 +128,20 @@ failure (exit code 1, no result line):
      [0, 1], K1 and K2 once a step (LR: neither), its peak device memory,
      CLI examples/s and bare step (10 steps on pre-mapped batches); LR
      again on the CPU, its eval and last train loss within 1e-4 relative
-     of the card's;
+     of the card's; DeepFM at the main path's width and files under each
+     of --optimizer=Adagrad, ftrl, Momentum and GD with
+     --sparse_table_update --pallas_expand and no fused store (21 steps,
+     K1 and K2 once a step, then its eval) and each one's bare step;
+     Wide&Deep at its published configuration (scripts/zoo_auc.py:62-64:
+     wdl, K=32, towers 256/128/64, no dropout; bf16 towers, B=16,384,
+     printed beside the published 128) on CSV lines from the port's writer
+     (ids over all 10,000 buckets of each column, so all 260,000 rows of
+     its tables are reachable): 20 steps on the streaming reader, 20
+     with --packed_cache=true building the cache and 20 on it (no sidecar
+     rewritten; the two runs' eval and last train loss within 1e-4
+     relative), "wide" for 10 steps, each evaluated, no K1/K2 launch in
+     training; the Python parse of one batch, each run's CLI examples/s
+     and peak device memory, the input alone, and the bare dense step;
   5. 5-step trajectories with f32 towers on the card (kernels) against
      the same steps on the CPU (plain versions), same weights and
      batches: DeepFM at B=1024, ESMM --dma_scatter and DIN (both DIN
@@ -134,6 +152,10 @@ failure (exit code 1, no result line):
      relative, and every weight within 1e-4 once the CPU's steps take
      the card's ReLU gates (field_block_trajectory says why); the seven
      kernel models of the zoo at B=1024, vocab 50k, held as DeepFM's;
+     DeepFM under each of the four other lazy optimizers at B=1024 (every
+     row store held), and Wide&Deep's dense wdl step at B=1024 (loss 1e-4
+     relative; weights 1e-4, with the card's ReLU gates replayed on the
+     CPU if any of the CPU's own differs);
   4b. serving, from the main paths' checkpoints: DeepFM at the bench
      width exported and inferred (one te batch) through the CLI, then
      served by PredictionServer(grpc_port=-1, device="cuda"): REST
@@ -154,7 +176,12 @@ failure (exit code 1, no result line):
      IPNN and LR exported and scored (one bucket of 64 va lines) by the
      card's and a CPU scorer within 2e-2, one K1 launch each (LR's [V]
      table gathered as its [V, 1] view, timed as the serving gathers
-     above);
+     above); Wide&Deep exported and inferred (2,048 te lines) through the
+     CLI, one bucket of 64 va lines scored by the card's and a CPU scorer
+     within 2e-2 with K1 launched twice (emb, and wide_cat's [V, 1] view),
+     one REST request of cont/cat instances through PredictionServer on
+     the card equal to Scorer.score, and both gathers checked and timed
+     as the serving gathers above;
 then the kernel report line and, last, the device line.
 """
 
@@ -178,6 +205,7 @@ sys.path.insert(0, HERE)
 from tf_repos_tpu_torch import main as cli  # noqa: E402
 from tf_repos_tpu_torch.config import Config, parse_config  # noqa: E402
 from tf_repos_tpu_torch.data import native  # noqa: E402
+from tf_repos_tpu_torch.data.csv import parse_csv_lines  # noqa: E402
 from tf_repos_tpu_torch.data.libsvm import LibsvmDataset, parse_libsvm_lines  # noqa: E402
 from tf_repos_tpu_torch.data.ragged import (  # noqa: E402
     MH_PAIRS,
@@ -303,6 +331,25 @@ ZOO = {
 ZOO_POINTS = {"width 33": ("IPNN", ("FNN", "IPNN", "OPNN")), "width 257, NFM": ("NFM", ("NFM",)),
               "width 257, AFM": ("AFM", ("AFM",)), "width 32": ("DCN", ("DCN", "DeepMVM"))}
 ZOO_TRAJ_B = 1024  # the card-vs-CPU trajectories' batch
+
+# the other optimizers' lazy row forms on the DeepFM main path's width and
+# files: no fused store (it is Adam's), so K1 and K2 read and write a
+# plain [S, 17] block gathered from the [V+1, 17] table store (stride 17)
+LAZY_OPTS = ("Adagrad", "ftrl", "Momentum", "GD")
+LAZY_WIDTH = dict(WIDTH, fused_table=False)
+
+# Wide&Deep at its published configuration (scripts/zoo_auc.py:62-64, the
+# reference's wide_n_deep run: the canned wdl optimizer, K=32, towers
+# 256/128/64, no dropout) on Criteo CSV lines, bf16 towers, at the bench
+# batch (published 128); "wide" (:53-55) likewise. Every one of the
+# 26 * 10,000 table rows is reachable: the writer draws ids from all 10,000
+# buckets of a column
+WD_WIDTH = dict(model="wide_n_deep", optimizer="wdl", embedding_size=32,
+                deep_layers="256,128,64", dropout="1.0,1.0,1.0", batch_size=B,
+                compute_dtype="bfloat16", feature_size=0, field_size=39)
+WD_FILES = 4  # tr.part<i>.csv, written in parallel
+WD_TR_ROWS = 10 * B  # one epoch = 10 steps; the runs take 2 epochs
+WD_BUCKETS = 10_000
 
 
 def zoo_width(name: str) -> dict:
@@ -991,6 +1038,50 @@ def din_kernel_phase(dev):
     return {"t": t, "bound": bound, "bound_by": "bytes", "err": err}
 
 
+def k1_k2_point(out, label, what, store, k, idx, s, gen):
+    """K1 and K2 at one lookup point, their entries "expand_rows (label)" and
+    "accumulate_rows (label)" added to ``out``: the table is the [S, K]
+    view store[:, :k] (its row stride the store's width), idx the lookup's
+    N ids. K1 bit-exact in f32 and bf16, K2 within 1e-4 * sum_i |g_i| +
+    1e-6 per element (atomics: run-to-run sum order), each timed against
+    its plain version and index_select / index_add, with its bound."""
+    dev, n = idx.device, idx.shape[0]
+    table = store[:, :k]
+    k1_exact(f"({label})", store, 0, k, idx)
+    err1 = float((SR.expand_rows(table, idx) - SR.expand_rows_plain(table, idx)).abs().max())
+    g = torch.randn((n, k), generator=gen, device=dev)
+    diff = (SR.accumulate_rows(g, idx, s) - SR.accumulate_rows_plain(g, idx, s)).abs()
+    scale = SR.accumulate_rows_plain(g.abs(), idx, s)
+    err2 = float(diff.max())
+    check(bool((diff <= 1e-4 * scale + 1e-6).all()),
+          f"accumulate_rows ({label}) differs: max abs err {err2}")
+    zeros = torch.zeros((s, k), device=dev)
+    e1, e2 = f"expand_rows ({label})", f"accumulate_rows ({label})"
+    out["t"][e1] = (cuda_ms(lambda: SR.expand_rows(table, idx)),
+                    cuda_ms(lambda: SR.expand_rows_plain(table, idx)),
+                    cuda_ms(lambda: torch.index_select(table, 0, idx)))
+    out["t"][e2] = (cuda_ms(lambda: SR.accumulate_rows(g, idx, s)),
+                    cuda_ms(lambda: SR.accumulate_rows_plain(g, idx, s)),
+                    cuda_ms(lambda: torch.index_add(zeros, 0, idx, g)))
+    # least time: the ids, the [S, K] rows and the [N, K] rows each moved
+    # once; K2's N*K adds are far below the f32 rate
+    nbytes = n * 4 + s * k * 4 + n * k * 4
+    out["bound"][e1] = nbytes / HBM_BYTES_PER_S * 1e3
+    out["bound"][e2] = max(nbytes / HBM_BYTES_PER_S, n * k / F32_FLOPS) * 1e3
+    out["bound_by"][e1] = out["bound_by"][e2] = "bytes"
+    out["err"][e1], out["err"][e2] = err1, err2
+    tile = SR._lib().tr_accumulate_rows_tile()
+    slots, tiles = longest_chain(idx, tile)
+    for e in (e1, e2):
+        ms, plain, lib = out["t"][e]
+        log(f"kernel {e}: {what}, S={s} N={n} K={k} (row stride {table.stride(0)}); "
+            f"max_abs_err {out['err'][e]:.3e}  {ms:.4f} ms  plain {plain:.4f} ms  library "
+            f"{lib:.4f} ms  bound {out['bound'][e]:.4f} ms (bytes: {nbytes / 1e6:.2f} MB; "
+            f"{out['bound'][e] / ms:.2f} of it)")
+    log(f"kernel accumulate_rows ({label}): longest chain {slots} slots on one id; "
+        f"{tiles} of {-(-n // tile)} tiles of {tile} slots hold it")
+
+
 def zoo_kernel_phase(dev):
     """K1 and K2 at the zoo's row widths (phase 3f): one Zipf(1.2) batch of
     the DeepFM point through each model's host dedup mapper, all 39 fields
@@ -998,10 +1089,8 @@ def zoo_kernel_phase(dev):
     [S, 3K] w|m|v store as on the main path: width 33 (the PNN family's
     [V, 1+32], row stride 99, words), 257 (NFM's and AFM's [V, 1+256],
     stride 771, words) at B=16,384 and at AFM's cut B=4,096, and 32
-    (DCN's and DeepMVM's [V, 32], stride 96, 16-byte chunks). K1
-    bit-exact in f32 and bf16, K2 within 1e-4 * sum_i |g_i| + 1e-6 per
-    element (atomics: run-to-run sum order), each timed against its plain
-    version and index_select / index_add."""
+    (DCN's and DeepMVM's [V, 32], stride 96, 16-byte chunks), each as
+    k1_k2_point holds and times it."""
     raw = zipf_batches(1, seed=11, batch=B)[0]
     gen = torch.Generator(device=dev).manual_seed(5)
     out = {"t": {}, "bound": {}, "bound_by": {}, "err": {}}
@@ -1012,45 +1101,25 @@ def zoo_kernel_phase(dev):
         mapped = SparseBatchMapper(model.sparse_slots())({k: v[:b] for k, v in raw.items()})
         s = int(mapped[UIDS_PREFIX + table_name].shape[0])
         idx = torch.from_numpy(np.ascontiguousarray(mapped["feat_ids"]).reshape(-1)).to(dev)
-        n = idx.shape[0]
         k = ZOO[name]["embedding_size"] + (0 if table_name == "emb" else 1)
         su = torch.randn((s, 3 * k), generator=gen, device=dev)
-        table = su[:, :k]
-        k1_exact(f"(zoo, {point})", su, 0, k, idx)
-        err1 = float((SR.expand_rows(table, idx) - SR.expand_rows_plain(table, idx)).abs().max())
-        g = torch.randn((n, k), generator=gen, device=dev)
-        diff = (SR.accumulate_rows(g, idx, s) - SR.accumulate_rows_plain(g, idx, s)).abs()
-        scale = SR.accumulate_rows_plain(g.abs(), idx, s)
-        err2 = float(diff.max())
-        check(bool((diff <= 1e-4 * scale + 1e-6).all()),
-              f"accumulate_rows (zoo, {point}) differs: max abs err {err2}")
-        zeros = torch.zeros((s, k), device=dev)
-        e1, e2 = f"expand_rows (zoo, {point})", f"accumulate_rows (zoo, {point})"
-        out["t"][e1] = (cuda_ms(lambda: SR.expand_rows(table, idx)),
-                        cuda_ms(lambda: SR.expand_rows_plain(table, idx)),
-                        cuda_ms(lambda: torch.index_select(table, 0, idx)))
-        out["t"][e2] = (cuda_ms(lambda: SR.accumulate_rows(g, idx, s)),
-                        cuda_ms(lambda: SR.accumulate_rows_plain(g, idx, s)),
-                        cuda_ms(lambda: torch.index_add(zeros, 0, idx, g)))
-        # least time: the ids, the [S, K] rows and the [N, K] rows each
-        # moved once; K2's N*K adds are far below the f32 rate
-        nbytes = n * 4 + s * k * 4 + n * k * 4
-        out["bound"][e1] = nbytes / HBM_BYTES_PER_S * 1e3
-        out["bound"][e2] = max(nbytes / HBM_BYTES_PER_S, n * k / F32_FLOPS) * 1e3
-        out["bound_by"][e1] = out["bound_by"][e2] = "bytes"
-        out["err"][e1], out["err"][e2] = err1, err2
-        tile = SR._lib().tr_accumulate_rows_tile()
-        slots, tiles = longest_chain(idx, tile)
-        for e in (e1, e2):
-            ms, plain, lib = out["t"][e]
-            log(f"kernel {e}: {name}'s lookup, B={b} S={s} N={n} K={k} (row stride {3 * k}); "
-                f"max_abs_err {out['err'][e]:.3e}  {ms:.4f} ms  plain {plain:.4f} ms  library "
-                f"{lib:.4f} ms  bound {out['bound'][e]:.4f} ms (bytes: {nbytes / 1e6:.2f} MB; "
-                f"{out['bound'][e] / ms:.2f} of it)")
-        log(f"kernel accumulate_rows (zoo, {point}): longest chain {slots} slots on one id; "
-            f"{tiles} of {-(-n // tile)} tiles of {tile} slots hold it")
-        del su, table, g, diff, scale, zeros
+        k1_k2_point(out, f"zoo, {point}", f"{name}'s lookup, B={b}", su, k, idx, s, gen)
+        del su
     torch.cuda.empty_cache()
+    return out
+
+
+def unfused_kernel_phase(dev):
+    """K1 and K2 on the unfused lazy row store (phase 3a, the other
+    optimizers' path): the DeepFM point's batch and ids, the table a plain
+    contiguous [S, 17] block (row stride 17, the word path) as the step
+    gathers it from the [V+1, 17] store, as k1_k2_point holds and times
+    it."""
+    pt = deepfm_point(dev)
+    out = {"t": {}, "bound": {}, "bound_by": {}, "err": {}}
+    table = torch.randn((pt["s"], pt["k"]), generator=pt["gen"], device=dev)
+    k1_k2_point(out, "unfused store, stride 17", f"DeepFM's lookup, B={B}", table, pt["k"],
+                pt["idx"], pt["s"], pt["gen"])
     return out
 
 
@@ -1644,6 +1713,238 @@ def zoo_bare_step(dev, name, profile):
     return ms, peak
 
 
+def lazy_optimizers_main_path(dev, work, rates):
+    """DeepFM at the main path's width on its files (one epoch, 21 steps)
+    under each of the other optimizers' lazy row forms, through the CLI:
+    --sparse_table_update --pallas_expand without the fused store, so K1
+    and K2 run on the [S, 17] rows of the plain table store. Each run:
+    launch counters zeroed just before and read just after, K1 and K2
+    once a step, finite loss, then --task_type=eval with AUC in [0, 1].
+    Returns {optimizer: (launches, steps)}; the CLI examples/s go into
+    rates."""
+    data = os.path.join(work, "data")
+    out = {}
+    t_all = time.perf_counter()
+    for opt in LAZY_OPTS:
+        argv = [f"--{k}={v}" for k, v in dict(LAZY_WIDTH, optimizer=opt).items()] + [
+            "--num_epochs=1", "--log_steps=7", f"--data_dir={data}",
+            f"--model_dir={work}/lazy_{opt}/", "--dt_dir=smoke", "--eval_throttle_secs=0",
+            f"--device={dev.type}", "--seed=2018"]
+        SR.reset_launches()
+        t0 = time.perf_counter()
+        with StepClock() as clock:
+            res = cli.main(["--task_type=train", *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"expand_rows": SR.expand_rows.launches,
+                    "accumulate_rows": SR.accumulate_rows.launches}
+        steps = res["step"]
+        rates[f"DeepFM lazy {opt} CLI"] = clock.ex_per_s(B)
+        ev = cli.main(["--task_type=eval", *argv])
+        log(f"lazy {opt} (DeepFM, unfused store): {steps} steps in {wall:.1f} s wall, loss "
+            f"{res['loss']:.5f} auc {res['auc']:.5f}; eval loss {ev['loss']:.5f} auc "
+            f"{ev['auc']:.5f}; launches {launches}; CLI {rates[f'DeepFM lazy {opt} CLI']:.0f} "
+            "examples/s")
+        check(steps == MAIN_STEPS, f"lazy {opt} ran {steps} steps")
+        for r in (res, ev):
+            check(math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0, f"lazy {opt}: {r}")
+        for kname, c in launches.items():
+            check(c == steps, f"lazy {opt}: {kname} launched {c} times in {steps} steps, "
+                              "expected one a step")
+        out[opt] = (launches, steps)
+    log(f"lazy optimizers phase (train, eval): {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+def lazy_bare_steps(dev, profile):
+    """The bare lazy step of each other optimizer on the DeepFM main path's
+    width, on pre-mapped Zipf(1.2) batches already on the card (K1/K2 on
+    the unfused store): 3 warm-up steps, then 30 timed. Returns
+    {optimizer: ms}. profile: None, or the trace path ("" for none); the
+    Adagrad step is profiled."""
+    raw = zipf_batches(4)
+    out = {}
+    for opt in LAZY_OPTS:
+        cfg = Config(**dict(LAZY_WIDTH, optimizer=opt))
+        model = create_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params, mstate = model.init(torch.Generator().manual_seed(0))
+        params = tree_map(lambda x: x.to(dev), params)
+        mstate = tree_map(lambda x: x.to(dev), mstate)
+        tx = make_optimizer(opt, cfg.learning_rate)
+        sopt = SP.make_sparse_row_optimizer(opt, cfg.learning_rate)
+        opt_state = SP.init_opt_state(model, tx, sopt, params)
+        step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
+        mapper = SparseBatchMapper(model.sparse_slots())
+        batches = [to_device(mapper(dict(b)), dev) for b in raw]
+        for i in range(3):
+            params, opt_state, mstate, loss = step(params, opt_state, mstate, batches[i % 4])
+        torch.cuda.synchronize()
+        n = 30
+        t0 = time.perf_counter()
+        for i in range(n):
+            params, opt_state, mstate, loss = step(params, opt_state, mstate, batches[i % 4])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        check(math.isfinite(float(loss)), f"bare lazy {opt} step loss {float(loss)}")
+        out[opt] = ms
+        log(f"bare step lazy {opt} (DeepFM, unfused store): {ms:.3f} ms/step, "
+            f"{B / ms * 1e3:.0f} examples/s (peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB)")
+        if profile is not None and opt == "Adagrad":
+            trace = os.path.splitext(profile)[0] + "_adagrad.json" if profile else ""
+            profile_step("DeepFM lazy Adagrad",
+                         lambda i: step(params, opt_state, mstate, batches[i % 4]), trace)
+        del params, opt_state, mstate, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def wd_argv(dev, work, model_dir, **over):
+    return [f"--{k}={v}" for k, v in dict(WD_WIDTH, **over).items()] + [
+        "--log_steps=5", f"--data_dir={work}/wd_data", f"--model_dir={work}/{model_dir}/",
+        "--dt_dir=smoke", "--eval_throttle_secs=0", f"--device={dev.type}", "--seed=2018"]
+
+
+def write_wd_data(data):
+    """The Wide&Deep CSV files, one writer process a file, all started
+    together (the writer draws a scalar at a time, ~70 us a line): train
+    in WD_FILES parts, one batch of va lines, 2,048 te lines."""
+    os.makedirs(data)
+    code = ("import sys; from tf_repos_tpu_torch.data.synthetic import write_synthetic_csv as w; "
+            "w(sys.argv[1], int(sys.argv[2]), cat_buckets=int(sys.argv[3]), seed=int(sys.argv[4]))")
+    jobs = [(f"tr.part{i}.csv", WD_TR_ROWS // WD_FILES, 31 + i) for i in range(WD_FILES)]
+    jobs += [("va.csv", B, 41), ("te.csv", 2048, 42)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, os.path.join(data, name), str(rows),
+                               str(WD_BUCKETS), str(seed)], cwd=HERE) for name, rows, seed in jobs]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(rcs == [0] * len(jobs), f"the csv writers exited {rcs}")
+
+
+def wd_sidecars(data):
+    d = os.path.join(data, ".packed_cache")
+    return {f: os.stat(os.path.join(d, f)).st_mtime_ns for f in os.listdir(d)} if os.path.isdir(d) else {}
+
+
+def wide_deep_main_path(dev, work, rates):
+    """Wide&Deep (wdl) at its published configuration on the port's CSV
+    lines, through the CLI: 20 steps (two epochs of 10) on the streaming
+    reader, then --task_type=eval; the same with --packed_cache=true
+    twice (the run that parses and writes the csv40 cache, and one that
+    only reads it, no sidecar rewritten), whose evals and last train
+    losses must agree within 1e-4 relative (same batches); then "wide"
+    (wdl) for 10 steps and its eval. The dense step has no kernel: K1 and
+    K2 must not launch while training. Each run's CLI examples/s, the
+    input alone for the streaming and the cached reader, the Python parse
+    of one batch, and the peak device memory go into rates."""
+    data = os.path.join(work, "wd_data")
+    t0 = time.perf_counter()
+    write_wd_data(data)
+    log(f"Wide&Deep data: {WD_TR_ROWS} train lines in {WD_FILES} files, {B} valid and 2048 test "
+        f"lines written in {time.perf_counter() - t0:.1f} s ({WD_FILES + 2} writer processes)")
+    with open(os.path.join(data, "tr.part0.csv"), "rb") as f:
+        lines = [next(f) for _ in range(WD_TR_ROWS // WD_FILES)][:B]
+    t_parse, _ = best_s(lambda: parse_csv_lines(lines), 1)
+    rates["wide_n_deep python parse ms"] = t_parse * 1e3
+    log(f"host input, Wide&Deep, per {len(lines)}-line batch: Python csv parse "
+        f"{t_parse * 1e3:.1f} ms (the only csv parser, in both packages)")
+    legs = [("wide_n_deep CLI", "wd_model", {}),
+            ("wide_n_deep CLI, cache build", "wd_cache_build", {"packed_cache": "true"}),
+            ("wide_n_deep CLI, cache hit", "wd_cache_hit", {"packed_cache": "true"}),
+            ("wide CLI", "wd_wide", {"model": "wide"})]
+    out = {}
+    for leg, model_dir, over in legs:
+        epochs = 1 if over.get("model") == "wide" else 2
+        argv = wd_argv(dev, work, model_dir, **over) + [f"--num_epochs={epochs}"]
+        before = wd_sidecars(data)
+        torch.cuda.reset_peak_memory_stats()
+        SR.reset_launches()
+        t0 = time.perf_counter()
+        with StepClock() as clock:
+            res = cli.main(["--task_type=train", *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = SR.expand_rows.launches + SR.accumulate_rows.launches
+        rates[leg] = clock.ex_per_s(B)
+        peak = torch.cuda.max_memory_allocated()
+        ev = cli.main(["--task_type=eval", *argv])
+        after = wd_sidecars(data)
+        log(f"{leg}: {res['step']} steps in {wall:.1f} s wall, loss {res['loss']:.5f} auc "
+            f"{res['auc']:.5f}; eval loss {ev['loss']:.5f} auc {ev['auc']:.5f}; CLI "
+            f"{rates[leg]:.0f} examples/s; peak device memory {peak / 2**30:.2f} GiB; K1/K2 "
+            f"launches {launches}; cache sidecars {len(before)} before, {len(after)} after")
+        check(res["step"] == 10 * epochs, f"{leg} ran {res['step']} steps")
+        for r in (res, ev):
+            check(math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0, f"{leg}: {r}")
+        check(abs(ev["loss"] - res["loss"]) <= 1e-4 * abs(res["loss"]),
+              f"{leg}: eval {ev['loss']} differs from the train run's final eval {res['loss']}")
+        check(launches == 0, f"{leg}: the dense step launched K1/K2 {launches} times")
+        if leg.endswith("cache build"):
+            # cont, cat, label and mask arrays and a meta file for each
+            # train file and the va file (the final eval reads it cached)
+            check(not before and len(after) == 5 * (WD_FILES + 1),
+                  f"{leg}: cache sidecars {sorted(after)}")
+        if leg.endswith("cache hit"):
+            check(after == before, f"{leg}: the cache was rewritten")
+        out[leg] = (res, ev, peak, model_dir)
+        if leg in ("wide_n_deep CLI", "wide_n_deep CLI, cache hit"):
+            rates[leg + " host"] = host_rate(argv, B)
+            log(f"{leg}: the input alone {rates[leg + ' host']:.0f} examples/s")
+    (rb, eb, _, db), (rh, eh, _, dh) = out["wide_n_deep CLI, cache build"], out[
+        "wide_n_deep CLI, cache hit"]
+    lb, lh = last_train_loss(f"{work}/{db}"), last_train_loss(f"{work}/{dh}")
+    rel = max(abs(eb["loss"] - eh["loss"]) / abs(eb["loss"]), abs(lb - lh) / abs(lb))
+    log(f"Wide&Deep cache build vs cache hit: eval loss {eb['loss']:.7f} vs {eh['loss']:.7f}, last "
+        f"train loss {lb:.7f} vs {lh:.7f}: max rel diff {rel:.2e} (held at 1e-4)")
+    check(rel <= 1e-4, f"Wide&Deep: the cache build and hit runs differ by {rel}")
+    return {leg: v[2] for leg, v in out.items()}
+
+
+def wd_bare_step(dev, profile, model="wide_n_deep"):
+    """The bare dense Wide&Deep step (wdl) on parsed CSV batches already on
+    the card, as the CLI runs it: 3 warm-up steps, then 20 timed. Returns
+    (ms, peak bytes)."""
+    cfg = Config(**dict(WD_WIDTH, model=model))
+    m = create_model(cfg)
+    rng = np.random.default_rng(12)
+    lines = [",".join([str(int(rng.random() < 0.5))] + [f"{x:.4f}" for x in rng.random(13)]
+                      + [str(c) for c in rng.integers(0, WD_BUCKETS, 26)]).encode()
+             for _ in range(4 * B)]
+    batches = [to_device(parse_csv_lines(lines[i * B:(i + 1) * B]), dev) for i in range(4)]
+    torch.cuda.reset_peak_memory_stats()
+    params, mstate = m.init(torch.Generator().manual_seed(0))
+    params = tree_map(lambda x: x.to(dev), params)
+    mstate = tree_map(lambda x: x.to(dev), mstate)
+    tx = make_optimizer("wdl", cfg.learning_rate, m.model_type)
+    opt = tx.init(params)
+    step = L.build_train_step(m, tx)
+    for i in range(3):
+        params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4])
+    torch.cuda.synchronize()
+    n = 20
+    t0 = time.perf_counter()
+    for i in range(n):
+        params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(float(loss)), f"bare {model} step loss {float(loss)}")
+    log(f"bare step {model} (wdl, dense, B={B}): {ms:.3f} ms/step, {B / ms * 1e3:.0f} examples/s "
+        f"(peak mem {peak / 2**30:.2f} GiB)")
+    if profile is not None and model == "wide_n_deep":
+        trace = os.path.splitext(profile)[0] + "_wd.json" if profile else ""
+        profile_step("Wide&Deep dense", lambda i: step(params, opt, mstate, batches[i % 4]), trace)
+    del params, opt, mstate, batches
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
 # ------------------------------------------------------------- phase 4b
 SERVE_BUCKETS = (1, 8, 64, 512)
 LAT_CALLS = 50  # scorer calls a bucket, and HTTP requests a size, for the latency
@@ -1995,9 +2296,62 @@ def zoo_serving(dev, work):
     return res
 
 
+def wd_serving(dev, work):
+    """Wide&Deep from its CLI checkpoint: export and infer (the 2,048 te
+    lines, one batch) through the CLI; one bucket of 64 va lines scored
+    by the card's scorer (K1 twice: emb and wide_cat's [V, 1] view) and
+    held to a CPU scorer within 2e-2 (bf16 towers); one REST request of
+    cont/cat instances through PredictionServer on the card, equal to
+    the card scorer's scores; K1 at both gathers as serving_k1 checks and
+    times it. Returns {entry: (times, bound, launches)}."""
+    argv = wd_argv(dev, work, "wd_model")
+    servable = os.path.dirname(cli.main(["--task_type=export", *argv]))
+    SR.reset_launches()
+    pred_path = cli.main(["--task_type=infer", *argv])
+    infer_launches = SR.expand_rows.launches
+    preds = np.loadtxt(pred_path)
+    check(preds.shape == (2048,) and bool(((preds >= 0) & (preds <= 1)).all()),
+          f"Wide&Deep pred.txt: shape {preds.shape}")
+    check(infer_launches == 2 * -(-2048 // B),
+          f"Wide&Deep infer launched K1 {infer_launches} times, not 2 a batch")
+    with open(os.path.join(work, "wd_data", "va.csv"), "rb") as f:
+        lines = [next(f) for _ in range(64)]
+    batch = parse_csv_lines(lines)
+    inst = [{"cont": batch["cont"][i], "cat": batch["cat"][i]} for i in range(64)]
+    card = Scorer(servable, batch_buckets=(64,), device=dev.type)
+    cpu = Scorer(servable, batch_buckets=(64,), warmup=False, device="cpu")
+    SR.reset_launches()
+    got = card.score(inst)["prob"]
+    launches = SR.expand_rows.launches
+    err = held_rel("Wide&Deep card vs CPU scorer", got, cpu.score(inst)["prob"], 2e-2)
+    check(launches == 2, f"Wide&Deep: the scorer launched K1 {launches} times, not 2 (one a table)")
+    srv = PredictionServer(servable, port=0, grpc_port=-1, reload_secs=0, device=dev.type)
+    srv.start()
+    try:
+        reply = http_json(srv.port, "/v1/models/wide_n_deep:predict",
+                          {"instances": json_instances(inst)})
+    finally:
+        srv.stop()
+    rest = held_rel("Wide&Deep REST vs Scorer.score", reply["predictions"], got, 1e-5)
+    log(f"serving Wide&Deep: infer of {preds.shape[0]} te lines ({infer_launches} K1 launches); "
+        f"one bucket of 64 va lines, K1 launched {launches} times; card vs CPU scorer max abs "
+        f"diff {err:.3e} (bf16 towers, held at 2e-2); REST cont/cat request vs Scorer.score max "
+        f"abs diff {rest:.3e}")
+    from tf_repos_tpu_torch.models.wide_deep import WideDeep
+
+    ids = WideDeep._offset_ids(torch.from_numpy(batch["cat"]).to(dev))
+    res = {"wide_n_deep emb": serving_k1("wide_n_deep emb bucket 64", card.params["emb"], ids),
+           "wide_n_deep wide_cat": serving_k1("wide_n_deep wide_cat bucket 64",
+                                              card.params["wide_cat"][:, None], ids)}
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {k: (t, bound, launches) for k, (t, bound) in res.items()}
+
+
 def serving_phase(dev, work):
     """Serving on the card (phase 4b): DeepFM through the HTTP server, ESMM,
-    DIN and, from the zoo, IPNN and LR through the scorer. Returns the
+    DIN and, from the zoo, IPNN and LR through the scorer, Wide&Deep
+    through both. Returns the
     kernel report's phase and launch counts for the serving entries of
     K1."""
     t0 = time.perf_counter()
@@ -2009,6 +2363,10 @@ def serving_phase(dev, work):
            "ESMM": aliccp_serving(dev, work, "ESMM", ESMM_WIDTH, "esmm_model"),
            "DIN": aliccp_serving(dev, work, "DIN", DIN_WIDTH, "din_model"),
            "LR": zoo_serving(dev, work)}
+    # Wide&Deep's two gathers, each entry with the scored batch's K1 count (2)
+    for table, r in wd_serving(dev, work).items():
+        names[table] = f"expand_rows (serving, whole table, {table})"
+        res[table] = r
     log(f"serving phase: {time.perf_counter() - t0:.1f} s")
     phase = {"t": {names[m]: r[0] for m, r in res.items()},
              "bound": {names[m]: r[1] for m, r in res.items()}, "bound_by": "bytes",
@@ -2149,9 +2507,11 @@ def profile_step(label: str, run, trace: str):
 # ------------------------------------------------------------------ phase 5
 def card_vs_cpu(label, cfg, mapped, dev, dense, gates=False):
     """5 sparse steps on the card (kernels) and on the CPU (plain versions)
-    from the same weights and mapped batches, step by step; ``dense(params)``
-    picks the dense leaves to compare. Held: the loss within 1e-4
-    relative, the w|m|v rows and the dense leaves within 1e-4. gates: a
+    from the same weights and mapped batches, step by step, under
+    cfg.optimizer's row form (on the fused store under cfg.fused_table);
+    ``dense(params)`` picks the dense leaves to compare. Held: the loss
+    within 1e-4 relative, every row store (w|m|v, or the table and its
+    state's stores) and the dense leaves within 1e-4. gates: a
     third run, on the CPU with the card's ReLU gates (ReluGates), is the
     one whose weights are held; the CPU's own-gate weights and the count
     of its gates that differ from the card's are printed, not held
@@ -2167,8 +2527,9 @@ def card_vs_cpu(label, cfg, mapped, dev, dense, gates=False):
     for name, where, mode in legs:
         d = torch.device(where)
         params = tree_map(lambda x: x.clone().to(d), p0)
-        tx = make_optimizer("Adam", cfg.learning_rate)
-        sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=True,
+        tx = make_optimizer(cfg.optimizer, cfg.learning_rate)
+        sopt = SP.make_sparse_row_optimizer(cfg.optimizer, cfg.learning_rate,
+                                            fused_table=cfg.fused_table,
                                             dma_scatter=cfg.dma_scatter)
         runs[name] = {"d": d, "params": params, "opt": SP.init_opt_state(model, tx, sopt, params),
                       "mstate": tree_map(lambda x: x.clone().to(d), m0), "mode": mode,
@@ -2179,21 +2540,24 @@ def card_vs_cpu(label, cfg, mapped, dev, dense, gates=False):
 
     def diff(a, b):
         ra, rb = runs[a], runs[b]
+        sa, sb = ra["opt"]["sparse"][table], rb["opt"]["sparse"][table]
         return (max(abs(x - y) / abs(x) for x, y in zip(ra["losses"], rb["losses"])),
-                float((ra["opt"]["sparse"][table]["wmv"].cpu()
-                       - rb["opt"]["sparse"][table]["wmv"].cpu()).abs().max()),
+                max(float((sa[k].cpu() - sb[k].cpu()).abs().max())
+                    for k in sorted(sa) if isinstance(sa[k], torch.Tensor)),
                 max(float((x.cpu() - y.cpu()).abs().max())
                     for x, y in zip(dense(ra["params"]), dense(rb["params"]))))
 
     rel, werr, derr = diff("cpu", "card")
+    stores = "+".join(k for k in sorted(runs["card"]["opt"]["sparse"][table])
+                      if isinstance(runs["card"]["opt"]["sparse"][table][k], torch.Tensor))
     log(f"trajectory {label} f32, 5 steps: losses cpu {runs['cpu']['losses']} card "
-        f"{runs['card']['losses']}; max rel loss diff {rel:.3e}, max |wmv| diff {werr:.3e}, dense "
-        f"diff {derr:.3e}" + (" (not held)" if gates else ""))
+        f"{runs['card']['losses']}; max rel loss diff {rel:.3e}, max |{stores}| diff {werr:.3e}, "
+        f"dense diff {derr:.3e}" + (" (not held)" if gates else ""))
     check(rel <= 1e-4, f"{label}: card vs CPU loss trajectory differs: {rel}")
     if gates:
         rel, werr, derr = diff("cpu, card's gates", "card")
         log(f"trajectory {label}, the CPU with the card's ReLU gates: {relu.flips} of the CPU's "
-            f"own gates differ from the card's; max rel loss diff {rel:.3e}, max |wmv| diff "
+            f"own gates differ from the card's; max rel loss diff {rel:.3e}, max |{stores}| diff "
             f"{werr:.3e}, dense diff {derr:.3e}")
         check(rel <= 1e-4, f"{label}: card vs CPU with the card's gates: loss differs: {rel}")
     check(werr <= 1e-4 and derr <= 1e-4, f"{label}: card vs CPU weights differ: {werr} {derr}")
@@ -2251,6 +2615,62 @@ def zoo_trajectory(dev):
         card_vs_cpu(f"zoo {name} B={ZOO_TRAJ_B} vocab 50k", cfg, [mapper(dict(b)) for b in raw], dev,
                     dense.get(name, lambda p: [p["out"]["w"], first(p)]), gates=name == "OPNN")
         log(f"trajectory zoo {name}: {time.perf_counter() - t0:.1f} s")
+
+
+def lazy_trajectory(dev):
+    """card_vs_cpu for the other optimizers' lazy row forms: DeepFM at
+    B=1,024, f32 towers, on the unfused store with K1/K2 on the card."""
+    cfg0 = Config(**dict(LAZY_WIDTH, batch_size=1024, compute_dtype="float32"))
+    mapper = SparseBatchMapper(create_model(cfg0).sparse_slots())
+    mapped = [mapper(b) for b in zipf_batches(5, seed=7, batch=1024)]
+    for opt in LAZY_OPTS:
+        cfg = cfg0.replace(optimizer=opt)
+        card_vs_cpu(f"DeepFM lazy {opt} B=1024", cfg, mapped, dev,
+                    lambda p: [p["fm_b"], p["out"]["w"], p["mlp"]["layers"][0]["dense"]["w"]])
+
+
+def wd_trajectory(dev):
+    """5 dense Wide&Deep steps (wdl, f32 towers, B=1,024) on the card and on
+    the CPU from the same weights and batches (uniform ids over all 10,000
+    buckets of each column). Held: the loss within 1e-4 relative and every
+    weight within 1e-4, on the CPU's own ReLU gates when none of them
+    differs from the card's; otherwise on a third run, the CPU with the
+    card's gates (the count of differing gates is printed either way)."""
+    cfg = Config(**dict(WD_WIDTH, batch_size=1024, compute_dtype="float32"))
+    model = create_model(cfg)
+    rng = np.random.default_rng(7)
+    batches = [{"cont": rng.random((1024, 13)).astype(np.float32),
+                "cat": rng.integers(0, WD_BUCKETS, (1024, 26)).astype(np.int32),
+                "label": (rng.random(1024) < 0.5).astype(np.float32),
+                "mask": np.ones(1024, np.float32)} for _ in range(5)]
+    p0, m0 = model.init(torch.Generator().manual_seed(3))
+    runs = {}
+    for label, where, mode in (("card", dev.type, "record"), ("cpu, card's gates", "cpu", "replay"),
+                               ("cpu", "cpu", "count")):
+        d = torch.device(where)
+        params = tree_map(lambda x: x.clone().to(d), p0)
+        tx = make_optimizer("wdl", cfg.learning_rate, model.model_type)
+        runs[label] = {"d": d, "params": params, "opt": tx.init(params), "mode": mode,
+                       "mstate": tree_map(lambda x: x.clone().to(d), m0),
+                       "step": L.build_train_step(model, tx)}
+    gates = ReluGates()
+    step_legs(runs, batches, gates)
+
+    def diff(a, b):
+        ra, rb = runs[a], runs[b]
+        return (max(abs(x - y) / abs(x) for x, y in zip(ra["losses"], rb["losses"])),
+                max(float((x.cpu() - y.cpu()).abs().max())
+                    for x, y in zip(tree_leaves(ra["params"]), tree_leaves(rb["params"]))))
+
+    rel, w_own = diff("cpu", "card")
+    rel_g, w_g = diff("cpu, card's gates", "card")
+    log(f"trajectory Wide&Deep wdl B=1024 f32, 5 steps: losses cpu {runs['cpu']['losses']} card "
+        f"{runs['card']['losses']}; max rel loss diff {rel:.3e}, max weight diff {w_own:.3e}; "
+        f"{gates.flips} of the CPU's ReLU gates differ from the card's; with the card's gates: "
+        f"max rel loss diff {rel_g:.3e}, max weight diff {w_g:.3e}")
+    check(rel <= 1e-4, f"Wide&Deep: card vs CPU loss trajectory differs: {rel}")
+    held = w_own if gates.flips == 0 else w_g
+    check(held <= 1e-4 and rel_g <= 1e-4, f"Wide&Deep: card vs CPU weights differ: {held}")
 
 
 def step_legs(runs, batches, gates=None):
@@ -2395,9 +2815,12 @@ def main() -> int:
         skp = scatter_kernel_phase(dev)
         fkp = field_block_kernel_phase(dev)
         zkp = zoo_kernel_phase(dev)
+        ukp = unfused_kernel_phase(dev)
         rates = {}  # host-input stage times and CLI examples/s, printed with the bare steps
         launches = main_path(dev, work, rates)
         zoo = zoo_main_path(dev, work)
+        lazy = lazy_optimizers_main_path(dev, work, rates)
+        wd_peak = wide_deep_main_path(dev, work, rates)
         elaunches = esmm_main_path(dev, work, rates)
         dlaunches = din_main_path(dev, work, rates)
         flaunches = field_block_main_path(dev, work, rates)
@@ -2407,7 +2830,11 @@ def main() -> int:
         dbare = {sb: din_bare_step(dev, profile, sb) for sb in (False, True)}
         dbare["dma"] = din_bare_step(dev, profile, False, dma_scatter=True)
         zbare = {name: zoo_bare_step(dev, name, profile) for name in ZOO}
+        lbare = lazy_bare_steps(dev, profile)
+        wbare = {m: wd_bare_step(dev, profile, m) for m in ("wide_n_deep", "wide")}
         trajectory(dev)
+        lazy_trajectory(dev)
+        wd_trajectory(dev)
         zoo_trajectory(dev)
         esmm_trajectory(dev)
         din_trajectory(dev)
@@ -2447,6 +2874,13 @@ def main() -> int:
     kernels += [(name, "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164"
                  if name.startswith("expand") else "tf_repos_tpu/ops/pallas_sparse.py:208", zkp,
                  zoo_launches) for name in zoo_launches]
+    # K1/K2 on the unfused store, with the launches of the four lazy-optimizer
+    # CLI runs
+    lazy_launches = {f"{k} (unfused store, stride 17)": sum(lazy[o][0][k] for o in LAZY_OPTS)
+                     for k in ("expand_rows", "accumulate_rows")}
+    kernels += [(name, "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164"
+                 if name.startswith("expand") else "tf_repos_tpu/ops/pallas_sparse.py:208", ukp,
+                 lazy_launches) for name in lazy_launches]
     report = []
     for name, src, replaces, phase, counts in kernels:
         ms, plain, lib = phase["t"][name]
@@ -2484,6 +2918,21 @@ def main() -> int:
             f"{b / ms * 1e3:.0f} examples/s ({zoo[name][2] / (b / ms * 1e3):.3f} of the bare step); "
             f"peak device memory CLI {zoo[name][3] / 2**30:.2f} GiB, bare step {peak / 2**30:.2f} "
             f"GiB on {card}")
+    for opt, ms in lbare.items():
+        cli_rate = rates[f"DeepFM lazy {opt} CLI"]
+        log(f"lazy {opt} (DeepFM, unfused store): CLI {cli_rate:.0f} examples/s vs bare step "
+            f"{ms:.3f} ms = {B / ms * 1e3:.0f} examples/s ({cli_rate / (B / ms * 1e3):.3f} of the "
+            f"bare step); launches {lazy[opt][0]} in {lazy[opt][1]} steps on {card}")
+    for leg, peak in wd_peak.items():
+        model = "wide" if leg.startswith("wide CLI") else "wide_n_deep"
+        ms, bpeak = wbare[model]
+        r = B / ms * 1e3
+        host = (f"; the input alone {rates[leg + ' host']:.0f} ({rates[leg + ' host'] / r:.3f})"
+                if leg + " host" in rates else "")
+        log(f"{leg} (wdl, K=32, B={B}, published 128): CLI {rates[leg]:.0f} examples/s vs bare "
+            f"step {ms:.3f} ms = {r:.0f} examples/s ({rates[leg] / r:.3f} of the bare step){host}; "
+            f"peak device memory CLI {peak / 2**30:.2f} GiB, bare step {bpeak / 2**30:.2f} GiB; "
+            f"Python csv parse {rates['wide_n_deep python parse ms']:.1f} ms a batch on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -634,3 +634,51 @@ def test_scorer_on_card_matches_cpu(dev, tmp_path):
     assert SR.expand_rows.launches == before + 1
     assert card.last_timing["bucket"] == 64
     np.testing.assert_allclose(got, cpu.score(inst)["prob"], rtol=2e-2, atol=1e-6)
+
+
+@pytest.mark.parametrize("opt", ["Adagrad", "ftrl", "Momentum", "GD"])
+def test_lazy_row_updates_on_card_match_cpu(dev, opt):
+    """The other optimizers' row forms on the card: three updates of a
+    plain [V+1, 6] store (sentinel rows included) equal to the CPU's, the
+    spare row held at zero."""
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.standard_normal((500, 6)).astype(np.float32))
+    us = [torch.from_numpy(np.concatenate([np.sort(rng.choice(500, 90, replace=False)),
+                                           np.full(38, 500)]).astype(np.int32)) for _ in range(3)]
+    gs = [torch.from_numpy(rng.standard_normal((128, 6)).astype(np.float32)) for _ in range(3)]
+    for g in gs:
+        g[90:] = 0.0  # the sentinel positions get no cotangent
+    auxes = []
+    for d in ("cpu", dev):
+        sopt = SP.make_sparse_row_optimizer(opt, 1e-2)
+        aux = sopt.init(table.to(d))
+        for u, g in zip(us, gs):
+            u = u.to(d)
+            sopt.apply(aux, sopt.gather(aux, u), u, g.to(d))
+        auxes.append({k: v.cpu() for k, v in aux.items()})
+    assert auxes[0].keys() == auxes[1].keys()
+    for k in auxes[0]:
+        torch.testing.assert_close(auxes[1][k], auxes[0][k], rtol=1e-6, atol=1e-7)
+        assert not bool(auxes[1][k][-1].any()), k
+
+
+def test_wide_deep_scorer_on_card_matches_cpu(dev, tmp_path):
+    """Wide&Deep at its published width (K=32, bf16 towers): the card's
+    scorer gathers emb and wide_cat's [V, 1] view with one K1 launch each,
+    within 2e-2 of the CPU's; ids outside the buckets read bucket 0."""
+    cfg = Config(model="wide_n_deep", embedding_size=32, deep_layers="256,128,64",
+                 dropout="1.0,1.0,1.0", compute_dtype="bfloat16", device="cpu")
+    model = create_model(cfg)
+    params, mstate = model.init(torch.Generator().manual_seed(0))
+    params["wide_cat"] = torch.randn(params["wide_cat"].shape) * 0.1
+    export_servable(str(tmp_path), model, params, mstate)
+    card = Scorer(str(tmp_path), batch_buckets=(64,), device="cuda")
+    cpu = Scorer(str(tmp_path), batch_buckets=(64,), warmup=False, device="cpu")
+    rng = np.random.default_rng(3)
+    cat = rng.integers(-3, 10_003, size=(64, 26)).astype(np.int32)
+    cont = rng.random((64, 13)).astype(np.float32)
+    inst = [{"cont": cont[i], "cat": cat[i]} for i in range(64)]
+    before = SR.expand_rows.launches
+    got = card.score(inst)["prob"]
+    assert SR.expand_rows.launches == before + 2
+    np.testing.assert_allclose(got, cpu.score(inst)["prob"], rtol=2e-2, atol=1e-6)

@@ -87,8 +87,15 @@ def test_bf16_towers_forward_close():
 
 @pytest.mark.parametrize("name", ["wide_n_deep", "widedeep", "wdl", "wide", "deep"])
 def test_unported_models_raise(name):
-    with pytest.raises(NotImplementedError, match=name):
-        create_model(Config(model=name))
+    """Ported since (tests/test_torch_wide_deep.py): each name builds a
+    WideDeep, which declares no sparse tables, so --fused_table raises as
+    in the JAX package (its store lives on the lazy sparse path)."""
+    from tf_repos_tpu_torch.models.wide_deep import WideDeep
+    from tf_repos_tpu_torch.train.harness import Harness
+
+    assert isinstance(create_model(Config(model=name)), WideDeep)
+    with pytest.raises(ValueError, match="--fused_table requires --sparse_table_update"):
+        Harness(Config(model=name, sparse_table_update=True, fused_table=True, device="cpu"))
 
 
 def test_predict_and_eval_steps_match_jax():

@@ -47,6 +47,9 @@ def test_modules_listed():
     assert "tf_repos_tpu_torch.features.criteo" in mods
     assert "tf_repos_tpu_torch.models.esmm" in mods
     assert "tf_repos_tpu_torch.models.din" in mods
+    assert "tf_repos_tpu_torch.models.wide_deep" in mods
+    assert "tf_repos_tpu_torch.data.csv" in mods
+    assert "tf_repos_tpu_torch.train.optimizers" in mods
     assert "tf_repos_tpu_torch.data.ragged" in mods
     assert "tf_repos_tpu_torch.train.harness" in mods
     assert "tf_repos_tpu_torch.serve.server" in mods

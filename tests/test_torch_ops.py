@@ -176,5 +176,11 @@ def test_adam_matches_optax():
 
 @pytest.mark.parametrize("name", ["Adagrad", "ftrl", "Momentum", "GD"])
 def test_unported_optimizers_raise(name):
-    with pytest.raises(NotImplementedError, match=name):
-        make_optimizer(name, 1e-3)
+    """Ported since: the dense optimizer builds (tests/test_torch_optimizers.py
+    holds it to the JAX package); what still raises is the fused [V, 3K]
+    row store, which is Adam's in both packages."""
+    from tf_repos_tpu_torch.train.sparse import make_sparse_row_optimizer
+
+    assert make_optimizer(name, 1e-3).init({"w": torch.zeros(2)}) is not None
+    with pytest.raises(ValueError, match=f"--fused_table supports Adam \\(got '{name}'\\)"):
+        make_sparse_row_optimizer(name, 1e-3, fused_table=True)

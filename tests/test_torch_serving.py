@@ -49,11 +49,12 @@ from tf_repos_tpu_torch.models import create_model
 from tf_repos_tpu_torch.ops import sparse_rows as SR
 from tf_repos_tpu_torch.serve import example_proto as EP
 from tf_repos_tpu_torch.serve import predict_proto as PP
-from tf_repos_tpu_torch.serve.export import export_servable, latest_version_dir
+from tf_repos_tpu_torch.serve.export import export_servable, latest_version_dir, load_servable
 from tf_repos_tpu_torch.serve.scorer import Scorer
 from tf_repos_tpu_torch.serve.server import MicroBatcher, OverloadedError, PredictionServer
 from tf_repos_tpu_torch.train.harness import Harness, run_task
 from tf_repos_tpu_torch.utils.convert import params_from_jax
+from tf_repos_tpu_torch.utils.platform import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPP_DIR = os.path.join(REPO, "tf_repos_tpu", "serve", "cpp")
@@ -71,6 +72,8 @@ SMALL = {
                  deep_layers="8,4", dropout="1.0,1.0"),
     "DCN": dict(model="DCN", feature_size=300, field_size=39, embedding_size=4,
                 deep_layers="8,4", dropout="1.0,1.0", cross_layers=2),
+    # Wide&Deep on csv lines: the 1-D wide_cat and the [260,000, K] emb
+    "WDL": dict(model="wide_n_deep", embedding_size=4, deep_layers="8,4", dropout="1.0,1.0"),
 }
 LIBSVM = ("DeepFM", "LR", "IPNN", "DCN")
 ALICCP_INPUTS = ("feat_ids", "a_catids", "a_shopids", "a_brandids", "a_intids",
@@ -86,13 +89,19 @@ def _wild(v):
 
 def _instances(name, n, seed=0, wild=False):
     kw = SMALL[name]
-    v, rng = kw["feature_size"], np.random.default_rng(seed)
+    v, rng = kw.get("feature_size", 0), np.random.default_rng(seed)
     if name in LIBSVM:
         ids = rng.integers(1, v, size=(n, kw["field_size"]))
         vals = (rng.random((n, kw["field_size"])) + 0.5).astype(np.float32)
         if wild:
             ids[:, ::3] = rng.choice(_wild(v), size=ids[:, ::3].shape)
         return [{"feat_ids": ids[i], "feat_vals": vals[i]} for i in range(n)]
+    if name == "WDL":
+        cont = rng.random((n, 13)).astype(np.float32)
+        cat = rng.integers(0, 10_000, size=(n, 26))
+        if wild:  # outside the buckets: bucket 0 of the column
+            cat[:, ::3] = rng.choice(_wild(10_000), size=cat[:, ::3].shape)
+        return [{"cont": cont[i], "cat": cat[i]} for i in range(n)]
     batch = synthetic_aliccp_batch(rng, n, v, multi_hot_pad=kw["multi_hot_pad"])
     batch = {k: batch[k].astype(np.int64) if k.endswith("ids") else batch[k] for k in ALICCP_INPUTS}
     if wild:
@@ -262,13 +271,14 @@ def test_predict_proto_roundtrip_and_bytes_match_jax():
 def _jax_weights(name, seed=0):
     jm = jax_create_model(JaxConfig(**SMALL[name]))
     jp, js = jm.init(jax.random.PRNGKey(seed))
-    if name == "LR":  # its init is all zeros
-        jp["w"] = jnp.asarray(np.random.default_rng(seed).standard_normal(jp["w"].shape),
-                              jnp.float32)
+    # LR's init, and Wide&Deep's wide part, are all zeros
+    for k in {"LR": ("w",), "WDL": ("wide_cont", "wide_cat")}.get(name, ()):
+        jp[k] = jnp.asarray(np.random.default_rng(seed).standard_normal(jp[k].shape) * 0.1,
+                            jnp.float32)
     return jm, jp, js
 
 
-@pytest.mark.parametrize("name", ["DeepFM", "ESMM", "DIN", "LR", "IPNN", "DCN"])
+@pytest.mark.parametrize("name", ["DeepFM", "ESMM", "DIN", "LR", "IPNN", "DCN", "WDL"])
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_export_loads_and_scores_in_the_other_package(tmp_path, name, writer):
     """A servable written by either package loads in both; on the same
@@ -303,7 +313,7 @@ def test_export_loads_and_scores_in_the_other_package(tmp_path, name, writer):
     _close(port.score(inst), ref.score(inst))
 
 
-@pytest.mark.parametrize("name", ["DeepFM", "ESMM", "DIN", "LR"])
+@pytest.mark.parametrize("name", ["DeepFM", "ESMM", "DIN", "LR", "WDL"])
 def test_out_of_range_and_negative_ids_scored_as_jax(tmp_path, name):
     jm, jp, js = _jax_weights(name, seed=3)
     d = str(tmp_path / "servable")
@@ -338,6 +348,55 @@ def test_export_of_a_fused_row_store_is_the_bare_table(tmp_path, name, flags):
 
 
 # -------------------------------------------------- a trained DeepFM servable
+def test_load_servable_defaults_to_the_card(tmp_path):
+    """Without a device the loader takes the card; with no card it raises
+    resolve_device's RuntimeError instead of loading on the CPU."""
+    jm, jp, js = _jax_weights("DeepFM")
+    vdir = jax_export(str(tmp_path / "servable"), jm, jp, js)
+    if torch.cuda.is_available():
+        _, params, _, _ = load_servable(vdir)
+        assert params["fm_b"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available") as err:
+        load_servable(vdir)
+    with pytest.raises(RuntimeError) as want:
+        resolve_device("cuda")
+    assert str(err.value) == str(want.value)
+    _, params, _, _ = load_servable(vdir, device="cpu")
+    assert params["fm_b"].device.type == "cpu"
+
+
+def test_wide_deep_rest_and_example_requests_match_scorer(tmp_path):
+    """A Wide&Deep servable behind the HTTP server: REST instances of
+    {"cont": [13], "cat": [26]} (row and columnar forms) and serialized
+    tf.Examples with I1..I13 / C1..C26 score as Scorer.score does, and
+    the scorer as the JAX package's."""
+    jm, jp, js = _jax_weights("WDL", seed=4)
+    d = str(tmp_path / "servable")
+    jax_export(d, jm, jp, js)
+    inst = _instances("WDL", 6, seed=5, wild=True)
+    scorer = Scorer(d, batch_buckets=(8,), warmup=False, device="cpu")
+    want = scorer.score(inst)["prob"]
+    _close({"prob": want}, JaxScorer(d, batch_buckets=(8,), warmup=False).score(inst))
+    srv = PredictionServer(d, port=0, reload_secs=0, grpc_port=-1, device="cpu")
+    srv.start()
+    try:
+        url = "/v1/models/wide_n_deep:predict"
+        got = _post(srv.port, url, {"instances": _json_instances(inst)})["predictions"]
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+        cols = {k: [np.asarray(i[k]).tolist() for i in inst] for k in ("cont", "cat")}
+        np.testing.assert_allclose(_post(srv.port, url, {"inputs": cols})["predictions"], want,
+                                   rtol=1e-6)
+        feats = [{**{f"I{c + 1}": [float(i["cont"][c])] for c in range(13)},
+                  **{f"C{c + 1}": [int(i["cat"][c])] for c in range(26)}} for i in inst]
+        ex = [{"b64": base64.b64encode(EP.encode_example(f)).decode()} for f in feats]
+        np.testing.assert_allclose(_post(srv.port, url, {"instances": ex})["predictions"], want,
+                                   rtol=1e-6)
+        assert EP.encode_example(feats[0]) == JEP.encode_example(feats[0])
+    finally:
+        srv.stop()
+
+
 @pytest.fixture(scope="module")
 def servable(tmp_path_factory):
     """Tiny DeepFM trained and exported through the port's harness on the

@@ -1,8 +1,8 @@
-"""Synthetic Criteo-shaped libsvm data and Ali-CCP-shaped sample lines
-(the port's own copy of those parts of the JAX package's
+"""Synthetic Criteo-shaped libsvm and CSV data and Ali-CCP-shaped sample
+lines (the port's own copy of those parts of the JAX package's
 data/synthetic.py; from the same seed the libsvm writer with zipf_a=0,
-and the Ali-CCP batch and line writers, draw the same numbers and give
-the same arrays and files).
+the CSV writer, and the Ali-CCP batch and line writers draw the same
+numbers and give the same arrays and files).
 
 39 fields per sample: 13 continuous fields with ids 1..13 and values in
 [0,1), then 26 categorical fields with value 1.0. Labels follow a planted
@@ -19,6 +19,7 @@ draws the multi-hot lengths of the published Ali-CCP regime
 (PUBLISHED_MH_AVG_LENS: the largest field averages 250 ids per sample).
 
     python -m tf_repos_tpu_torch.data.synthetic --out_dir d [--zipf_a 1.2]
+    python -m tf_repos_tpu_torch.data.synthetic --out_dir d --format csv
     python -m tf_repos_tpu_torch.data.synthetic --out_dir d --format aliccp \
         --feature_size 4500000 --mh_lens published --zipf_a 1.2
 """
@@ -99,6 +100,20 @@ def write_synthetic_libsvm(
             parts += [f"{fid}:{_fmt_val(v)}" for fid, v in zip(ids[i], vals[i])]
             f.write(" ".join(parts) + "\n")
     return feature_size, len(ids[0]) if ids else 0
+
+
+def write_synthetic_csv(path: str, num_samples: int, cat_buckets: int = 100, seed: int = 0) -> None:
+    """Criteo CSV lines for Wide&Deep (data/csv.py): label, 13 numeric
+    columns in [0, 1) with four decimals, 26 categorical ids in
+    [0, cat_buckets). A scalar draw at a time, in the JAX writer's order,
+    so the same seed writes the same bytes."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(num_samples):
+            label = int(rng.random() < 0.5)
+            ints = [f"{rng.random():.4f}" for _ in range(13)]
+            cats = [str(int(rng.integers(0, cat_buckets))) for _ in range(26)]
+            f.write(",".join([str(label)] + ints + cats) + "\n")
 
 
 # The published Ali-CCP multi-hot length point: the largest user-behaviour
@@ -248,12 +263,12 @@ def write_synthetic_aliccp(
 
 
 def main(argv=None):
-    """CLI: synthetic tr/va/te files (libsvm or Ali-CCP lines) for smoke runs."""
+    """CLI: synthetic tr/va/te files (libsvm, csv or Ali-CCP lines) for smoke runs."""
     import argparse
 
     p = argparse.ArgumentParser()
     p.add_argument("--out_dir", required=True)
-    p.add_argument("--format", default="libsvm", choices=["libsvm", "aliccp"])
+    p.add_argument("--format", default="libsvm", choices=["libsvm", "csv", "aliccp"])
     p.add_argument("--feature_size", type=int, default=117_581)
     p.add_argument("--train", type=int, default=2000)
     p.add_argument("--valid", type=int, default=500)
@@ -271,6 +286,9 @@ def main(argv=None):
         if a.format == "libsvm":
             path = os.path.join(a.out_dir, f"{split}.libsvm")
             write_synthetic_libsvm(path, n, a.feature_size, seed=a.seed + i, zipf_a=a.zipf_a)
+        elif a.format == "csv":
+            path = os.path.join(a.out_dir, f"{split}.csv")
+            write_synthetic_csv(path, n, seed=a.seed + i)
         else:
             path = os.path.join(a.out_dir, f"{split}.samples.txt")
             write_synthetic_aliccp(

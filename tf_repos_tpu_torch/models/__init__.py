@@ -1,7 +1,7 @@
-"""Model registry, with the JAX package's names and aliases. Ported so
-far: LR, DeepFM, NFM, AFM, DCN, DeepMVM, DIN, ESMM (alias DeepCvrMTL) and
-the PNN family (pnn, fnn, ipnn/inner, opnn/outer); the Wide&Deep names
-raise NotImplementedError."""
+"""Model registry, with the JAX package's names and aliases: LR, DeepFM,
+NFM, AFM, DCN, DeepMVM, DIN, ESMM (alias DeepCvrMTL), the PNN family
+(pnn, fnn, ipnn/inner, opnn/outer) and Wide&Deep (wide_n_deep, widedeep,
+wdl; wide and deep fix its model_type)."""
 
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from tf_repos_tpu_torch.models.esmm import ESMM
 from tf_repos_tpu_torch.models.lr import LR
 from tf_repos_tpu_torch.models.nfm import NFM
 from tf_repos_tpu_torch.models.pnn import PNN
+from tf_repos_tpu_torch.models.wide_deep import WideDeep
 
 _REGISTRY: Dict[str, Callable[[Config], CtrModel]] = {
     "lr": LR,
@@ -35,12 +36,15 @@ _REGISTRY: Dict[str, Callable[[Config], CtrModel]] = {
     "inner": lambda cfg: PNN(cfg, model_type="Inner"),
     "opnn": lambda cfg: PNN(cfg, model_type="Outer"),
     "outer": lambda cfg: PNN(cfg, model_type="Outer"),
+    "wide_n_deep": WideDeep,
+    "widedeep": WideDeep,
+    "wdl": WideDeep,
+    "wide": lambda cfg: WideDeep(cfg, model_type="wide"),
+    "deep": lambda cfg: WideDeep(cfg, model_type="deep"),
 }
 
-# the JAX package's other model names, not ported yet
-_NOT_PORTED = ("wide_n_deep", "widedeep", "wdl", "wide", "deep")
-
-INPUT_FORMAT: Dict[str, str] = {"ESMM": "aliccp", "DIN": "aliccp"}
+# the batch layout each model reads (the harness picks the reader)
+INPUT_FORMAT: Dict[str, str] = {"ESMM": "aliccp", "DIN": "aliccp", "wide_n_deep": "csv"}
 
 
 def model_names():
@@ -49,11 +53,6 @@ def model_names():
 
 def create_model(cfg: Config) -> CtrModel:
     key = cfg.model.lower()
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"--model={cfg.model}: not ported to tf_repos_tpu_torch yet "
-            f"(ported: {model_names()})"
-        )
     if key not in _REGISTRY:
         raise ValueError(f"unknown model {cfg.model!r}; choose from {model_names()}")
     return _REGISTRY[key](cfg)

@@ -2,8 +2,9 @@
 over the unified libsvm id space, logit = b + sum_f w[id_f] * val_f, with
 a 1-D [V] weight table and l2_reg * l2_loss(w).
 
-The 1-D table takes the lazy sparse step's plain Adam (train/sparse.py
-AdamRowOpt) and the dense step; it has no fused w|m|v row store and no
+The 1-D table takes the lazy sparse step's unfused row forms
+(train/sparse.py: Adam, Adagrad, FTRL, Momentum, GD) and the dense step;
+it has no fused w|m|v row store and no
 [S, K] row kernels, so the harness refuses --fused_table and
 --pallas_expand for it, as the JAX package cannot run it there either.
 Serving gathers it through K1 as a [V, 1] table

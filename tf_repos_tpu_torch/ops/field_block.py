@@ -160,10 +160,18 @@ class _FieldBlockLookup(torch.autograd.Function):
     """Forward: the plain gather table[ids] (JAX's forward is XLA's gather,
     outside any kernel). Backward: field_block_scatter for [B,F] ids; the
     plain scatter_reference for any other shape, as the JAX package does;
-    the ids get no gradient."""
+    the ids get no gradient. Refused, where the JAX package's backward
+    fails on a shape (Wide&Deep's and LR's): a 1-D table, and [B,F] ids
+    whose F is not the count of blocks."""
 
     @staticmethod
     def forward(ctx, table: torch.Tensor, ids: torch.Tensor, spec) -> torch.Tensor:
+        if table.dim() != 2:
+            raise ValueError("--field_blocks: a 1-D table has no [V, W] rows for the "
+                             "field-block scatter")
+        if ids.dim() == 2 and ids.shape[1] != len(spec[0]):
+            raise ValueError(f"--field_blocks: ids of {ids.shape[1]} fields for "
+                             f"{len(spec[0])} blocks")
         ctx.save_for_backward(ids)
         ctx.spec = spec
         ctx.vocab = table.shape[0]

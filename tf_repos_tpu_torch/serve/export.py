@@ -32,6 +32,7 @@ from tf_repos_tpu_torch.config import Config
 from tf_repos_tpu_torch.models import create_model, input_format
 from tf_repos_tpu_torch.models.base import CtrModel
 from tf_repos_tpu_torch.utils.convert import params_from_jax
+from tf_repos_tpu_torch.utils.platform import resolve_device
 
 _SEP = "|"
 
@@ -64,9 +65,15 @@ def _unflatten(like: Any, flat: Dict[str, np.ndarray], prefix: Tuple = ()) -> An
 
 def _input_signature(model: CtrModel) -> Dict[str, Dict]:
     """Raw-tensor input signature per input format, as the JAX package
-    writes it (libsvm and Ali-CCP; the port has no csv model yet)."""
+    writes it (libsvm, csv and Ali-CCP)."""
     cfg = model.cfg
-    if input_format(model) == "aliccp":
+    fmt = input_format(model)
+    if fmt == "csv":
+        return {
+            "cont": {"dtype": "float32", "shape": [None, 13]},
+            "cat": {"dtype": "int32", "shape": [None, 26]},
+        }
+    if fmt == "aliccp":
         p = cfg.multi_hot_pad
         sig: Dict[str, Dict] = {
             "feat_ids": {"dtype": "int32", "shape": [None, cfg.field_size]},
@@ -115,9 +122,12 @@ def latest_version_dir(servable_dir: str) -> str:
     return os.path.join(servable_dir, max(versions, key=int))
 
 
-def load_servable(version_dir: str, device="cpu") -> Tuple[CtrModel, Any, Any, Dict]:
+def load_servable(version_dir: str, device="cuda") -> Tuple[CtrModel, Any, Any, Dict]:
     """Rebuild (model, params, mstate, signature) from an export dir of
-    either package, the weights as f32 tensors on ``device``."""
+    either package, the weights as f32 tensors on ``device``: the card
+    unless the caller asks for the CPU (resolve_device raises when CUDA
+    is absent)."""
+    device = resolve_device(str(device))
     with open(os.path.join(version_dir, "saved_model.json")) as f:
         signature = json.load(f)
     cfg = Config(**dict(signature["config"], device=str(device)))

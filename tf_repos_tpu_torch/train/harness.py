@@ -1,6 +1,7 @@
 """Trainer harness (counterpart of the JAX package's train/harness.py) on
 one device: the libsvm models (LR, DeepFM, the PNN family, NFM, AFM,
-DCN, DeepMVM) and ESMM and DIN on Ali-CCP sample lines.
+DCN, DeepMVM), Wide&Deep on Criteo CSV lines, and ESMM and DIN on
+Ali-CCP sample lines.
 
   train     -> train loop with periodic eval (eval_throttle_secs),
                checkpoints (torch.save under model_dir), a final eval on
@@ -14,13 +15,19 @@ DCN, DeepMVM) and ESMM and DIN on Ali-CCP sample lines.
   export    -> a versioned servable (serve/export.py) under
                servable_model_dir or <model_dir>/servable
 
-The step is the lazy sparse step (train/sparse.py) under
---sparse_table_update, with the hand-written expand/accumulate kernels
-as its inner lookup under --pallas_expand and the row-scatter write-back
-under --dma_scatter; the dense step otherwise, whose table gradient goes
-through the field-block scatter kernel under --field_blocks. LR's 1-D
-table takes plain lazy Adam or the dense step: --fused_table and
---pallas_expand raise for it.
+--optimizer picks Adam, Adagrad, ftrl, Momentum, GD/SGD or the canned
+wdl composite (train/optimizers.py; wdl's rates come from the model or
+--model_type). The step is the lazy sparse step (train/sparse.py) under
+--sparse_table_update, with the optimizer's row form (wdl has none),
+the hand-written expand/accumulate kernels as its inner lookup under
+--pallas_expand and the row-scatter write-back under --dma_scatter
+(--fused_table and --dma_scatter: Adam only); the dense step otherwise,
+whose table gradient goes through the field-block scatter kernel under
+--field_blocks. A model that declares no sparse tables (Wide&Deep)
+takes the dense step under --sparse_table_update, with a warning, as in
+the JAX package. LR's 1-D table takes the lazy row forms without the
+fused store, or the dense step: --fused_table and --pallas_expand raise
+for it.
 Under --mh_coo the training batches' multi-hot fields are packed into a
 COO triplet on the host (data/sparse_batch.MhCooPacker, before the dedup
 mapper), which the COO pool kernels consume (ESMM), or the sorted-stream
@@ -48,6 +55,7 @@ import numpy as np
 import torch
 
 from tf_repos_tpu_torch.config import Config, echo_config
+from tf_repos_tpu_torch.data.csv import CsvDataset
 from tf_repos_tpu_torch.data.libsvm import LibsvmDataset, glob_input_files
 from tf_repos_tpu_torch.data.pipeline import Prefetcher, parallel_mapped_batches
 from tf_repos_tpu_torch.data.ragged import MH_PAIRS, AliccpDataset
@@ -152,7 +160,10 @@ class Harness:
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.model = create_model(cfg)
-        self.tx = make_optimizer(cfg.optimizer, cfg.learning_rate)
+        # the canned wdl composite derives its rates from the model_type
+        wdl_type = (cfg.model.lower() if cfg.model.lower() in ("wide", "deep")
+                    else (cfg.model_type or "wide_n_deep").lower())
+        self.tx = make_optimizer(cfg.optimizer, cfg.learning_rate, wdl_type)
         self.model_dir = cfg.resolved_model_dir() or "./model_ckpt"
         if self.model.flat_table:
             for flag, on in (("--fused_table", cfg.fused_table),
@@ -166,7 +177,14 @@ class Harness:
                     )
         self._sparse_slots = None
         if cfg.sparse_table_update:
-            self._sparse_slots = self.model.sparse_slots()
+            slots = self.model.sparse_slots()
+            if slots:
+                self._sparse_slots = slots
+            else:
+                print(
+                    f"WARNING: --sparse_table_update: {self.model.name} "
+                    "declares no sparse tables; using the dense path"
+                )
         if cfg.fused_table and self._sparse_slots is None:
             raise ValueError(
                 "--fused_table requires --sparse_table_update (the fused "
@@ -332,6 +350,8 @@ class Harness:
                       packed_cache=cfg.packed_cache)
         if fmt == "aliccp":
             return AliccpDataset(files, multi_hot_pad=cfg.multi_hot_pad, **common)
+        if fmt == "csv":
+            return CsvDataset(files, **common)
         # --num_threads sizes the native parser's thread pool
         workers = max(1, min(cfg.num_threads, (os.cpu_count() or 4) - 1))
         return LibsvmDataset(files, field_size=cfg.field_size, parse_workers=workers, **common)

@@ -1,13 +1,14 @@
-"""Touched-rows-only ("lazy") Adam for the embedding table (counterpart of
-the JAX package's train/sparse.py, Adam part).
+"""Touched-rows-only ("lazy") optimizers for the embedding tables
+(counterpart of the JAX package's train/sparse.py): Adam, Adagrad, FTRL,
+Momentum and GD/SGD.
 
 The host mapper (data/sparse_batch.py) ships the batch's unique ids
 ``__uids_<table>`` (ascending, padded with the sentinel V) and remaps the
 id fields to positions into them. The step gathers those S rows once,
 differentiates the loss with respect to the small [S,K] block, and
-updates only those rows of the table and its Adam moments. Untouched rows
-keep stale moments (TF LazyAdam semantics); bias correction uses the
-global step count; L2 reaches only the touched rows.
+updates only those rows of the table and of its optimizer state.
+Untouched rows keep stale state (TF LazyAdam semantics); Adam's bias
+correction uses the global step count; L2 reaches only the touched rows.
 
 Row stores. JAX reads the sentinel with ``.at[u].get(mode="fill")`` and
 drops its write with ``.at[u].set(mode="drop")``. Indexing row V of a
@@ -55,20 +56,104 @@ def put_rows(store: torch.Tensor, u: torch.Tensor, rows: torch.Tensor) -> None:
 
 
 class SparseRowOpt:
-    """A lazy row-wise optimizer for one [V,K] table.
+    """A lazy row-wise optimizer for one [V,K] (or 1-D [V]) table.
 
-    init(table) -> aux          row stores (and the step count)
+    init(table) -> aux          row stores (and, for Adam, the step count)
     gather(aux, u) -> su        the f32 rows one gather brings in; the
                                 model's rows are su[:, :K]
     apply(aux, su, u, g)        in-place update of the touched rows;
                                 returns table(aux)
     table(aux)                  the [V,K] table view of the store
-    """
+
+    The unfused optimizers keep the table in the row store ``w`` and each
+    state array in a row store of its own, named as in the JAX package and
+    started at ``STORES``' value (the spare row at zero like every other:
+    the guards below keep the sentinel's math finite, and its write lands
+    in the spare row, which is wiped). ``rows`` gives the new rows of each
+    store."""
 
     fused = False
+    STORES: Dict[str, float] = {}
+
+    def __init__(self, learning_rate: float):
+        self.lr = learning_rate
+
+    def init(self, table: torch.Tensor) -> Dict[str, Any]:
+        aux = {"w": row_store(table)}
+        for name, fill in self.STORES.items():
+            aux[name] = row_store(torch.full_like(table, fill))
+        return aux
+
+    def table(self, aux) -> torch.Tensor:
+        return aux["w"][:-1]
+
+    def gather(self, aux, u: torch.Tensor) -> torch.Tensor:
+        return take_rows_f32(aux["w"], u)
+
+    def rows(self, aux, su, u, g) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def apply(self, aux, su, u, g) -> torch.Tensor:
+        for name, new in self.rows(aux, su, u, g).items():
+            put_rows(aux[name], u, new)
+        return self.table(aux)
+
+
+class GdRowOpt(SparseRowOpt):
+    """Lazy GD/SGD: w -= lr * g on the touched rows; no state."""
+
+    def rows(self, aux, su, u, g):
+        return {"w": su - self.lr * g}
+
+
+class MomentumRowOpt(SparseRowOpt):
+    """Lazy momentum (0.95): mo = 0.95 * mo + g; w -= lr * mo."""
+
+    STORES = {"mo": 0.0}
+
+    def rows(self, aux, su, u, g):
+        mo = 0.95 * take_rows_f32(aux["mo"], u) + g
+        return {"mo": mo, "w": su - self.lr * mo}
+
+
+class AdagradRowOpt(SparseRowOpt):
+    """Lazy TF Adagrad: a += g^2; w -= lr * g * rsqrt(a), accumulator from
+    1e-8. The sentinel reads a = 0 from the spare row: rsqrt(0) times its
+    zero cotangent would be NaN, so a is floored at 1e-11 for the step."""
+
+    INIT = 1e-8
+    STORES = {"a": INIT}
+
+    def rows(self, aux, su, u, g):
+        a = take_rows_f32(aux["a"], u) + torch.square(g)
+        step = self.lr * g * torch.rsqrt(torch.clamp(a, min=self.INIT * 1e-3))
+        return {"a": a, "w": su - step}
+
+
+class FtrlRowOpt(SparseRowOpt):
+    """Lazy FTRL with TF's defaults (lr_power -0.5, n from 0.1, l1 = l2 = 0):
+    n1 = n0 + g^2; z1 = z0 + g - ((sqrt(n1) - sqrt(n0)) / lr) * w;
+    w = -z1 / (sqrt(n1) / lr). n0 is floored at 1e-4 (the sentinel reads
+    n = 0). Untouched rows keep their values: the dense form rebuilds
+    every w from (z, n), which zeroes rows no step has touched."""
+
+    INIT = 0.1
+    STORES = {"n": INIT, "z": 0.0}
+
+    def rows(self, aux, su, u, g):
+        n0 = torch.clamp(take_rows_f32(aux["n"], u), min=self.INIT * 1e-3)
+        z0 = take_rows_f32(aux["z"], u)
+        n1 = n0 + torch.square(g)
+        z1 = z0 + g - ((torch.pow(n1, 0.5) - torch.pow(n0, 0.5)) / self.lr) * su
+        return {"n": n1, "z": z1, "w": -z1 / (torch.pow(n1, 0.5) / self.lr)}
+
+
+class _LazyAdam(SparseRowOpt):
+    """Adam's row math, shared by the plain and the fused store."""
 
     def __init__(self, learning_rate: float, catchup: bool):
-        self.lr = learning_rate
+        super().__init__(learning_rate)
         self.catchup = catchup
         self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
 
@@ -93,26 +178,18 @@ class SparseRowOpt:
             put_rows(aux["last"], u, torch.full_like(u, t))
 
 
-class AdamRowOpt(SparseRowOpt):
+class AdamRowOpt(_LazyAdam):
     """Plain lazy Adam: table, m and v in three row stores (three gathers
     and three write-backs per step)."""
 
+    STORES = {"m": 0.0, "v": 0.0}
+
     def init(self, table: torch.Tensor) -> Dict[str, Any]:
-        aux = {
-            "w": row_store(table),
-            "m": row_store(torch.zeros_like(table)),
-            "v": row_store(torch.zeros_like(table)),
-            "t": 0,
-        }
+        aux = super().init(table)
+        aux["t"] = 0
         if self.catchup:
             aux["last"] = torch.zeros(table.shape[0] + 1, dtype=torch.int32, device=table.device)
         return aux
-
-    def table(self, aux) -> torch.Tensor:
-        return aux["w"][:-1]
-
-    def gather(self, aux, u: torch.Tensor) -> torch.Tensor:
-        return take_rows_f32(aux["w"], u)
 
     @torch.no_grad()
     def apply(self, aux, su, u, g) -> torch.Tensor:
@@ -128,7 +205,7 @@ class AdamRowOpt(SparseRowOpt):
         return self.table(aux)
 
 
-class FusedTableRowOpt(SparseRowOpt):
+class FusedTableRowOpt(_LazyAdam):
     """Lazy Adam over one [V+1, 3K] row store of w | m | v: one row
     gather serves the forward and the moments, one row write-back stores
     all three.
@@ -199,12 +276,19 @@ def make_sparse_row_optimizer(
     catchup: bool = False,
     dma_scatter: bool = False,
 ) -> SparseRowOpt:
-    """Adam only in this slice (plain or fused [V,3K] storage, with or
+    """The lazy form of make_optimizer's optimizer ``name``, with the same
+    hyperparameters: Adam (plain or on the fused [V,3K] store, with or
     without per-row moment catch-up; with dma_scatter the fused store is
-    lane-padded and written back by K7)."""
-    if name.lower() != "adam":
-        raise NotImplementedError(
-            f"sparse-row optimizer {name!r}: not ported to tf_repos_tpu_torch yet (Adam only)"
+    lane-padded and written back by K7), Adagrad, FTRL, Momentum and
+    GD/SGD. The JAX package's errors: catch-up and the fused store are
+    Adam's; wdl has no row form. --fused_moments is refused by the
+    harness (not ported)."""
+    key = name.lower()
+    if catchup and key != "adam":
+        raise ValueError(
+            f"--sparse_catchup applies to Adam (got {name!r}): the other "
+            "sparse-row optimizers are already exact fixed points of the "
+            "dense update on untouched rows"
         )
     if dma_scatter and not fused_table:
         raise ValueError(
@@ -212,8 +296,19 @@ def make_sparse_row_optimizer(
             "fused [V,L] store's one write-back; the unfused layouts keep theirs)"
         )
     if fused_table:
+        if key != "adam":
+            raise ValueError(
+                f"--fused_table supports Adam (got {name!r}); use "
+                "--fused_moments for the other optimizers"
+            )
         return FusedTableRowOpt(learning_rate, catchup, dma_scatter)
-    return AdamRowOpt(learning_rate, catchup)
+    if key == "adam":
+        return AdamRowOpt(learning_rate, catchup)
+    rows = {"adagrad": AdagradRowOpt, "ftrl": FtrlRowOpt, "gd": GdRowOpt, "sgd": GdRowOpt,
+            "momentum": MomentumRowOpt}
+    if key not in rows:
+        raise ValueError(f"no sparse-row variant for optimizer {name!r}")
+    return rows[key](learning_rate)
 
 
 def split_params(params: Dict[str, Any], slot_names) -> Tuple[Dict, Dict]:
@@ -223,7 +318,7 @@ def split_params(params: Dict[str, Any], slot_names) -> Tuple[Dict, Dict]:
 
 
 def init_opt_state(model, tx_dense, sopt: SparseRowOpt, params) -> Dict[str, Any]:
-    """Adam state for the dense part, row stores for each sparse table.
+    """The dense optimizer's state for the rest, row stores for each sparse table.
     Rebinds params[table] to the store's [V,K] view, so the table exists
     once in memory."""
     names = list(model.sparse_slots().keys())

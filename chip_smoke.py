@@ -21,7 +21,11 @@ FNN, IPNN, OPNN, NFM, AFM, DCN, DeepMVM) at its published widths on the
 same files, K1/K2 at row widths 33, 257 and 32; then DeepFM under the
 other optimizers' lazy row forms (Adagrad, FTRL, Momentum, GD: K1/K2 on
 the plain [V+1, 17] store) and Wide&Deep (the canned wdl optimizer, the
-dense step, no kernel in training; K1 at its two serving gathers).
+dense step, no kernel in training; K1 at its two serving gathers); then
+the repo's four single-process presets (criteo_headline: the dense step,
+no kernel; criteo_singlepass: K1/K2; esmm_large_vocab: K1-K4 on the bf16
+fused store and the slim wire; din_large_vocab: K1, K2, K5, K6 on the
+bf16 fused store).
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build of every CUDA kernel from tf_repos_tpu_torch/ops/csrc (one
@@ -90,6 +94,14 @@ Phases, each fatal on failure (exit code 1, no result line):
         96): K1 bit-exact (f32 and bf16), K2 within 1e-4 * sum_i |g_i| +
         1e-6, each timed against its plain version and index_select /
         index_add;
+     g. stochastic rounding (ops/rounding.py) on the card bit-identical
+        to the CPU for the same noise on 1M random bit patterns and the
+        edge values (infinities, NaNs, the all-ones NaN, the largest
+        finite, +-0, subnormals), and rounding up 0.25 ulp above 1.0 at
+        a rate of 0.25 +- 0.01 over 200,000 draws from a generator on the
+        card; then K1 and K2 on the f32 rows the step gathers from the
+        fused [4,500,001, 48] bf16 store at the esmm_large_vocab point
+        (S = 114,688), as in f, beside the row gather from bf16 and f32;
   4. the main paths: ``tf_repos_tpu_torch.main`` --task_type=train at
      full width on the native host input (C++ parsers and duplicate
      combine, data/native.py), DeepFM for >= 20 steps on synthetic Zipf
@@ -142,6 +154,24 @@ Phases, each fatal on failure (exit code 1, no result line):
      relative), "wide" for 10 steps, each evaluated, no K1/K2 launch in
      training; the Python parse of one batch, each run's CLI examples/s
      and peak device memory, the input alone, and the bare dense step;
+     the presets criteo_headline, criteo_singlepass (on the DeepFM files),
+     esmm_large_vocab and din_large_vocab (on the ESMM lines, 4.5M vocab,
+     K=16, B=4096) through the CLI with --preset=<name> and the model
+     widths (the Ali-CCP ones with --steps_per_dispatch=5, a plain loop
+     either way, to log within their 10 steps): train (each kernel of the
+     preset's step launched as often as it runs a step, the others not
+     at all), eval (the train run's final eval within 1e-4 relative),
+     export; the bf16 runs' servables scored on 64 va lines by the card's
+     and a CPU scorer within 2e-2; each preset's CLI examples/s and peak
+     device memory, its first batches with and without --slim_transfer
+     (wire bytes per example, the host encode of one batch, the decoded
+     slim batches equal to the full ones on the card), its tables and
+     state in bytes against f32, its bare step (10 steps on 4 batches);
+     criteo_singlepass and esmm_large_vocab 3 steps on each wire from one
+     init, losses within 1e-6 relative; K3 and K4 on the COO stream the
+     card decoded from the esmm_large_vocab wire, and K5 and K6 on DIN's
+     compact stream rebuilt on the card from the wire's counts (equal to
+     the packer's), each against its plain version;
   5. 5-step trajectories with f32 towers on the card (kernels) against
      the same steps on the CPU (plain versions), same weights and
      batches: DeepFM at B=1024, ESMM --dma_scatter and DIN (both DIN
@@ -155,7 +185,15 @@ Phases, each fatal on failure (exit code 1, no result line):
      DeepFM under each of the four other lazy optimizers at B=1024 (every
      row store held), and Wide&Deep's dense wdl step at B=1024 (loss 1e-4
      relative; weights 1e-4, with the card's ReLU gates replayed on the
-     CPU if any of the CPU's own differs);
+     CPU if any of the CPU's own differs); on bf16 stores with the noise
+     replayed (a CPU generator of one seed drawn through the noise seam
+     in both runs) and the card's ReLU gates: ESMM on the fused store with
+     catch-up at B=512 and DeepFM --fused_moments under Adam and FTRL at
+     B=1,024, 5 steps held as above (loss 1e-4, f32 stores and dense
+     weights 1e-4; the bf16 stores' elements apart printed), and each
+     row update of those 5 steps again on the CPU from the card's inputs
+     (store, rows, ids, row gradients, noise): every bf16 store equal but
+     for elements one ulp apart, the others equal;
   4b. serving, from the main paths' checkpoints: DeepFM at the bench
      width exported and inferred (one te batch) through the CLI, then
      served by PredictionServer(grpc_port=-1, device="cuda"): REST
@@ -237,6 +275,7 @@ from tf_repos_tpu_torch.models import create_model  # noqa: E402
 from tf_repos_tpu_torch.ops import build  # noqa: E402
 from tf_repos_tpu_torch.ops import coo_pool as CP  # noqa: E402
 from tf_repos_tpu_torch.ops import field_block as FB  # noqa: E402
+from tf_repos_tpu_torch.ops import rounding as RD  # noqa: E402
 from tf_repos_tpu_torch.ops import row_scatter as RS  # noqa: E402
 from tf_repos_tpu_torch.ops import sorted_seg as SG  # noqa: E402
 from tf_repos_tpu_torch.ops import sparse_rows as SR  # noqa: E402
@@ -2516,10 +2555,28 @@ def card_vs_cpu(label, cfg, mapped, dev, dense, gates=False):
     one whose weights are held; the CPU's own-gate weights and the count
     of its gates that differ from the card's are printed, not held
     (field_block_trajectory says why a gate within f32 round-off of 0
-    moves the weights by steps of lr, not by round-off)."""
+    moves the weights by steps of lr, not by round-off).
+
+    Under cfg.param_dtype=bfloat16 the tables and their stores are bf16,
+    every run rounds its write-backs with the noise of a CPU generator of
+    the same seed, drawn through the noise seam (rounding.sr_noise, here
+    replaced by a CPU draw copied to the run's device, for this check
+    only); the bf16 stores' elements apart and their most ulps apart are
+    printed, not held here: a rounding moved by the last f32 bit of a sum
+    taken in another order on the card parts the two runs by one ulp, and
+    later steps carry and grow it, so bf16_step_check holds each row
+    update on the card's own inputs instead; cfg.fused_moments and
+    cfg.sparse_catchup pick the row forms as the harness does.
+
+    Returns {"flips": the CPU's own gates that differ from the card's (None
+    without gates), "own": the CPU's own-gate differences, "held": the
+    held ones}, each as the tuple that is printed (loss rel diff, f32
+    store diff, dense diff, bf16 elements apart, most ulps, bf16
+    elements)."""
     model = create_model(cfg)
     (table,) = model.sparse_slots()
     p0, m0 = model.init(torch.Generator().manual_seed(3))
+    bf16 = cfg.param_dtype in ("bfloat16", "bf16")
     legs = [("card", dev.type, "record"), ("cpu", "cpu", "count")]
     if gates:
         legs.insert(1, ("cpu, card's gates", "cpu", "replay"))
@@ -2527,40 +2584,68 @@ def card_vs_cpu(label, cfg, mapped, dev, dense, gates=False):
     for name, where, mode in legs:
         d = torch.device(where)
         params = tree_map(lambda x: x.clone().to(d), p0)
+        if bf16:
+            params = SP.cast_tables(model, params, torch.bfloat16)
         tx = make_optimizer(cfg.optimizer, cfg.learning_rate)
         sopt = SP.make_sparse_row_optimizer(cfg.optimizer, cfg.learning_rate,
+                                            fused_moments=cfg.fused_moments,
                                             fused_table=cfg.fused_table,
+                                            catchup=cfg.sparse_catchup,
                                             dma_scatter=cfg.dma_scatter)
         runs[name] = {"d": d, "params": params, "opt": SP.init_opt_state(model, tx, sopt, params),
                       "mstate": tree_map(lambda x: x.clone().to(d), m0), "mode": mode,
+                      "sr": torch.Generator().manual_seed(11) if bf16 else None,
                       "step": SP.build_sparse_train_step(model, tx, sopt,
                                                          lookup=SR.make_expand_lookup())}
     relu = ReluGates() if gates else None
-    step_legs(runs, mapped, relu)
+    draw = RD.sr_noise
+    if bf16:
+        RD.sr_noise = lambda shape, generator, device: draw(shape, generator, "cpu").to(device)
+    try:
+        step_legs(runs, mapped, relu)
+    finally:
+        RD.sr_noise = draw
 
     def diff(a, b):
+        """(loss rel diff, f32 and int store diff, dense diff, bf16 store
+        elements apart, their most ulps apart, bf16 store elements)."""
         ra, rb = runs[a], runs[b]
         sa, sb = ra["opt"]["sparse"][table], rb["opt"]["sparse"][table]
-        return (max(abs(x - y) / abs(x) for x, y in zip(ra["losses"], rb["losses"])),
-                max(float((sa[k].cpu() - sb[k].cpu()).abs().max())
-                    for k in sorted(sa) if isinstance(sa[k], torch.Tensor)),
+        werr, apart, ulps, n16 = 0.0, 0, 0, 0
+        for k in sorted(sa):
+            if not isinstance(sa[k], torch.Tensor):
+                continue
+            x, y = sa[k].cpu(), sb[k].cpu()
+            if x.dtype == torch.bfloat16:
+                u = (x.view(torch.int16).int() - y.view(torch.int16).int()).abs()
+                apart, ulps, n16 = apart + int((u > 0).sum()), max(ulps, int(u.max())), n16 + u.numel()
+            else:
+                werr = max(werr, float((x.double() - y.double()).abs().max()))
+        return (max(abs(x - y) / abs(x) for x, y in zip(ra["losses"], rb["losses"])), werr,
                 max(float((x.cpu() - y.cpu()).abs().max())
-                    for x, y in zip(dense(ra["params"]), dense(rb["params"]))))
+                    for x, y in zip(dense(ra["params"]), dense(rb["params"]))), apart, ulps, n16)
 
-    rel, werr, derr = diff("cpu", "card")
+    def line(r):
+        rel, werr, derr, apart, ulps, n16 = r
+        return (f"max rel loss diff {rel:.3e}, max |{stores}| diff {werr:.3e}"
+                + (f", bf16 stores: {apart} of {n16} elements apart, at most {ulps} ulp (not held)"
+                   if bf16 else "") + f", dense diff {derr:.3e}")
+
+    r = diff("cpu", "card")
     stores = "+".join(k for k in sorted(runs["card"]["opt"]["sparse"][table])
                       if isinstance(runs["card"]["opt"]["sparse"][table][k], torch.Tensor))
-    log(f"trajectory {label} f32, 5 steps: losses cpu {runs['cpu']['losses']} card "
-        f"{runs['card']['losses']}; max rel loss diff {rel:.3e}, max |{stores}| diff {werr:.3e}, "
-        f"dense diff {derr:.3e}" + (" (not held)" if gates else ""))
-    check(rel <= 1e-4, f"{label}: card vs CPU loss trajectory differs: {rel}")
+    log(f"trajectory {label} {'bf16 stores' if bf16 else 'f32'}, 5 steps: losses cpu "
+        f"{runs['cpu']['losses']} card {runs['card']['losses']}; {line(r)}"
+        + (" (not held)" if gates else ""))
+    check(r[0] <= 1e-4, f"{label}: card vs CPU loss trajectory differs: {r[0]}")
+    own = r
     if gates:
-        rel, werr, derr = diff("cpu, card's gates", "card")
+        r = diff("cpu, card's gates", "card")
         log(f"trajectory {label}, the CPU with the card's ReLU gates: {relu.flips} of the CPU's "
-            f"own gates differ from the card's; max rel loss diff {rel:.3e}, max |{stores}| diff "
-            f"{werr:.3e}, dense diff {derr:.3e}")
-        check(rel <= 1e-4, f"{label}: card vs CPU with the card's gates: loss differs: {rel}")
-    check(werr <= 1e-4 and derr <= 1e-4, f"{label}: card vs CPU weights differ: {werr} {derr}")
+            f"own gates differ from the card's; {line(r)}")
+        check(r[0] <= 1e-4, f"{label}: card vs CPU with the card's gates: loss differs: {r[0]}")
+    check(r[1] <= 1e-4 and r[2] <= 1e-4, f"{label}: card vs CPU weights differ: {r[1]} {r[2]}")
+    return {"flips": relu.flips if gates else None, "own": own, "held": r}
 
 
 def trajectory(dev):
@@ -2580,6 +2665,14 @@ def esmm_trajectory(dev):
 
 
 def din_trajectory(dev):
+    """card_vs_cpu for DIN --mh_coo, with and without --coo_sorted_bwd, at
+    B=512, vocab 50k, pad 64, f32 towers. Both legs hold their weights
+    with the card's ReLU gates replayed on the CPU: the card's index_add
+    sums run in a new order on each run, a few of the attention MLP's
+    gates sit within f32 round-off of 0 at this point, and one more of
+    them flipping moves a table element by Adam's lr (5.37e-4 where it
+    did); scripts/torch_gate_flips.py repeats the check and counts the
+    flips."""
     cfg = Config(**dict(DIN_WIDTH, feature_size=50_000, batch_size=512, multi_hot_pad=64,
                         compute_dtype="float32"))
     model = create_model(cfg)
@@ -2588,7 +2681,8 @@ def din_trajectory(dev):
         chain = din_chain(model, sorted_aux=sorted_bwd)
         card_vs_cpu(f"DIN --mh_coo{' --coo_sorted_bwd' if sorted_bwd else ''} B=512 vocab 50k "
                     "pad 64", cfg, [chain(b) for b in raw], dev,
-                    lambda p: [p["out"]["w"], p["att_out"]["w"], p["att_mlp"]["layers"][0]["dense"]["w"]])
+                    lambda p: [p["out"]["w"], p["att_out"]["w"], p["att_mlp"]["layers"][0]["dense"]["w"]],
+                    gates=True)
 
 
 def zoo_trajectory(dev):
@@ -2596,10 +2690,13 @@ def zoo_trajectory(dev):
     published width on a 50k vocab, B=1,024, f32 towers, no dropout, on
     Zipf(1.2) batches through its mapper; beside the w|m|v rows, the out
     projection and the first tower layer (DCN's cross weights, DeepMVM's
-    field bias). OPNN's weights are held with the card's ReLU gates on
-    the CPU: each of its first layer's 262,144 pre-activations sums
-    760,032 products, and those within f32 round-off of 0 take their gate
-    by the order of the sums."""
+    field bias). OPNN's and DeepMVM's weights are held with the card's
+    ReLU gates on the CPU: each of OPNN's first layer's 262,144
+    pre-activations sums 760,032 products, and those within f32 round-off
+    of 0 take their gate by the order of the sums; DeepMVM's towers hold
+    13-36 pre-activations within 1e-6 of 0 a call at this point (counted
+    on the CPU), and one flipped gate moved a table row by 1.5 lr in one
+    run."""
     first = lambda p: p["mlp"]["layers"][0]["dense"]["w"]  # noqa: E731
     dense = {"AFM": lambda p: [p["out"]["w"], p["att_mlp"]["layers"][0]["dense"]["w"]],
              "DCN": lambda p: [p["out"]["w"], first(p), p["cross_w"]],
@@ -2613,7 +2710,8 @@ def zoo_trajectory(dev):
                             compute_dtype="float32"))
         mapper = SparseBatchMapper(create_model(cfg).sparse_slots())
         card_vs_cpu(f"zoo {name} B={ZOO_TRAJ_B} vocab 50k", cfg, [mapper(dict(b)) for b in raw], dev,
-                    dense.get(name, lambda p: [p["out"]["w"], first(p)]), gates=name == "OPNN")
+                    dense.get(name, lambda p: [p["out"]["w"], first(p)]),
+                    gates=name in ("OPNN", "DeepMVM"))
         log(f"trajectory zoo {name}: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2690,8 +2788,10 @@ def step_legs(runs, batches, gates=None):
             for r in runs.values():
                 if gates:
                     gates.mode, gates.i = r["mode"], 0
+                # a run over bf16 stores also takes its rounding generator
+                sr = (None, r["sr"]) if r.get("sr") is not None else ()
                 r["params"], r["opt"], r["mstate"], loss = r["step"](
-                    r["params"], r["opt"], r["mstate"], to_device(b, r["d"]))
+                    r["params"], r["opt"], r["mstate"], to_device(b, r["d"]), *sr)
                 r["losses"].append(float(loss))
     finally:
         if gates:
@@ -2774,6 +2874,435 @@ def field_block_trajectory(dev):
           f"DeepFM --field_blocks: card vs CPU with the card's gates differ: {rel_g} {w_g}")
 
 
+# ------------------------------------------- bf16 stores, the slim wire, the presets
+# the single-process presets at full width: the DeepFM benchmark point's
+# model widths on its files, the published Ali-CCP point's on the ESMM
+# lines (scripts/bench_published.py:77-83, 186-187); each preset's own
+# flags otherwise (config.PRESETS)
+CRITEO_MODEL = {k: WIDTH[k] for k in ("model", "feature_size", "field_size", "embedding_size",
+                                      "deep_layers", "dropout", "learning_rate", "l2_reg",
+                                      "optimizer")}
+ALI_MODEL = {k: ESMM_WIDTH[k] for k in ("feature_size", "field_size", "embedding_size",
+                                        "deep_layers", "dropout", "learning_rate", "l2_reg",
+                                        "optimizer")}
+PRESET_WIDTH = {
+    "criteo_headline": CRITEO_MODEL,
+    "criteo_singlepass": CRITEO_MODEL,
+    "esmm_large_vocab": dict(ALI_MODEL, model="ESMM"),
+    "din_large_vocab": dict(ALI_MODEL, model="DIN", attention_layers="256", attention_pooling=True),
+}
+# the kernels each preset's step launches, and how many times a step
+PRESET_KERNELS = {
+    "criteo_headline": {},
+    "criteo_singlepass": {"expand_rows": 1, "accumulate_rows": 1},
+    "esmm_large_vocab": {"expand_rows": 1, "accumulate_rows": 1, "coo_pool_rows": 1,
+                         "coo_accumulate_rows": 1},
+    "din_large_vocab": {"expand_rows": 2, "accumulate_rows": 2, "sorted_segsum": 2,
+                        "sorted_expand": 2},
+}
+COUNTED = (SR.expand_rows, SR.accumulate_rows, CP.coo_pool_rows, CP.coo_accumulate_rows,
+           SG.sorted_segsum, SG.sorted_expand, RS.dma_row_scatter, FB.field_block_scatter)
+# the edge values of the rounding: +-inf, NaNs (quiet, with a payload,
+# signalling, the all-ones one that wraps to +0), the largest finite
+# (rounds up to inf), +-0, subnormals, ordinary values
+SR_EDGE = np.array([0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00000, 0x7FC10000, 0x7F800001,
+                    0x7F80FFFF, 0xFFA12345, 0xFFFFFFFF, 0x7F7FFFFF, 0xFF7FFFFF, 0x00000000,
+                    0x80000000, 0x00000001, 0x807FFFFF, 0x3F800000, 0xBF800001, 0x3F80FFFF],
+                   np.uint32)
+
+
+def preset_argv(dev, work, name, model_dir):
+    """The CLI flags of a preset run: --preset=<name>, the model widths,
+    the data and model directories. Log cadence: the Criteo presets log
+    every 8 steps (their dispatch group); the Ali-CCP ones run 10 steps,
+    fewer than one group of 64 (ESMM) or than two of 8 (DIN), so they take
+    --steps_per_dispatch=5 (a plain loop of steps either way) to log at
+    steps 5 and 10."""
+    criteo = name.startswith("criteo")
+    over = ["--log_steps=8"] if criteo else ["--steps_per_dispatch=5", "--log_steps=5"]
+    return [f"--preset={name}"] + [f"--{k}={v}" for k, v in PRESET_WIDTH[name].items()] + [
+        "--num_epochs=1", f"--data_dir={work}/{'data' if criteo else 'esmm_data'}",
+        f"--model_dir={work}/{model_dir}/", "--dt_dir=smoke", "--eval_throttle_secs=0",
+        f"--device={dev.type}", "--seed=2018", *over]
+
+
+def rounding_phase(dev):
+    """Stochastic rounding on the card: bit-identical to the CPU given the
+    same noise, on the edge values and 1M random bit patterns; rounding
+    up 0.25 of a bf16 ulp above 1.0 at a rate of 0.25 +- 0.01 over
+    200,000 draws from a generator on the card; its time on the ESMM
+    point's [S, 3K] rows (plain PyTorch, not a kernel)."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([np.repeat(SR_EDGE, 1000),
+                        rng.integers(0, 2 ** 32, 1_000_000, dtype=np.uint32)]).view(np.float32)
+    xt = torch.from_numpy(x)
+    for label, noise in (("random", rng.integers(0, 1 << 16, x.size).astype(np.int32)),
+                         ("0", np.zeros(x.size, np.int32)),
+                         ("0xFFFF", np.full(x.size, 0xFFFF, np.int32))):
+        nt = torch.from_numpy(noise)
+        want = RD.round_bits(xt, nt).view(torch.int16)
+        got = RD.round_bits(xt.to(dev), nt.to(dev)).view(torch.int16).cpu()
+        check(torch.equal(got, want), f"rounding on the card differs from the CPU (noise {label}): "
+                                      f"{int((got != want).sum())} elements")
+    n, ulp = 200_000, 2.0 ** -7
+    gen = torch.Generator(device=dev).manual_seed(0)
+    up = RD.stochastic_round_bf16(torch.full((n,), 1.0 + 0.25 * ulp, device=dev), gen).float()
+    rate = float((up > 1.0).float().mean())
+    check(abs(rate - 0.25) <= 0.01, f"rounding up at 0.25 ulp happens at {rate}")
+    rows = torch.randn((114_688, 48), device=dev)
+    ms = cuda_ms(lambda: RD.stochastic_round_bf16(rows, gen))
+    log(f"rounding: card == CPU bit for bit on {x.size} values (the {SR_EDGE.size} edge values "
+        f"included) at three noises; up-rate at 0.25 ulp {rate:.4f} over {n} card draws; "
+        f"{ms:.4f} ms for [114688, 48] (noise draw and rounding, plain PyTorch)")
+
+
+def bf16_store_kernel_phase(dev):
+    """K1 and K2 on rows gathered from the fused [4,500,001, 48] bf16 w|m|v
+    store at the esmm_large_vocab point (the ESMM point's uids, S =
+    114,688; K1's ids the 14 single-valued fields): the step's f32 upcast
+    of the store's rows (train/sparse.take_rows_f32), as k1_k2_point holds
+    and times them; beside, the row gather from the bf16 store and from an
+    f32 one of the same rows (plain PyTorch)."""
+    pt = esmm_point(dev)
+    k, s = pt["k"], pt["s"]
+    uids = torch.from_numpy(pt["mapped"]["__uids_emb"]).to(dev)
+    v = ESMM_WIDTH["feature_size"]
+    store = torch.randn((v + 1, 3 * k), generator=pt["gen"], device=dev).to(torch.bfloat16)
+    store[-1].zero_()
+    su = SP.take_rows_f32(store, uids)
+    out = {"t": {}, "bound": {}, "bound_by": {}, "err": {}}
+    k1_k2_point(out, "bf16 store, ESMM point", "ESMM's single-valued lookup on bf16-store rows",
+                su, k, pt["ids"], s, pt["gen"])
+    g16 = cuda_ms(lambda: SP.take_rows_f32(store, uids))
+    f32 = store.float()
+    g32 = cuda_ms(lambda: SP.take_rows_f32(f32, uids))
+    log(f"bf16 store [{v + 1}, {3 * k}]: {store.numel() * 2 / 2**20:.0f} MiB (f32 "
+        f"{store.numel() * 4 / 2**20:.0f} MiB); the step's row gather of S={s} rows "
+        f"{g16:.4f} ms from bf16, {g32:.4f} ms from f32 (plain index_select + upcast)")
+    del store, f32
+    torch.cuda.empty_cache()
+    return out
+
+
+def store_bytes(h, state):
+    """(bytes, bytes in f32) of the sparse tables and their optimizer
+    state: the lazy step's row stores, or the dense step's tables and
+    their Adam moments."""
+    if h._sopt is not None:
+        xs = [x for aux in state["opt_state"]["sparse"].values() for x in aux.values()
+              if isinstance(x, torch.Tensor)]
+    else:
+        v = h.cfg.feature_size
+        xs = [x for x in tree_leaves(state["params"]) + tree_leaves(state["opt_state"])
+              if isinstance(x, torch.Tensor) and x.dim() and x.shape[0] == v]
+    return (sum(x.numel() * x.element_size() for x in xs),
+            sum(x.numel() * (4 if x.is_floating_point() else x.element_size()) for x in xs))
+
+
+def first_batches(h, n):
+    batches = []
+    for b in h._dataset("tr", shuffle=True, epochs=1):
+        batches.append(b)
+        if len(batches) == n:
+            break
+    return batches
+
+
+def wire_bytes(batches, b):
+    return sum(np.asarray(x).nbytes for bb in batches for x in bb.values()) / (len(batches) * b)
+
+
+def decoded_equal(label, slim_h, slim, full, dev):
+    """The slim batches decoded on the card equal the full ones moved to
+    it (the compact segment stream aside, which the model rebuilds; the
+    live counts compared as int32)."""
+    for i, (s, f) in enumerate(zip(slim, full)):
+        got = slim_h.model._decode(to_device(s, dev))
+        want = to_device(f, dev)
+        want.pop(MHC_CDEST, None)
+        if MHC_CNT in want:
+            want[MHC_CNT] = want[MHC_CNT].to(torch.int32)
+        check(sorted(got) == sorted(want), f"{label}: decoded keys {sorted(got)} vs {sorted(want)}")
+        for k in want:
+            check(got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]),
+                  f"{label}: decoded batch {i} differs at {k}")
+
+
+def run_steps(h, batches, dev, n):
+    """n steps of the harness's own train step from its init on the given
+    host batches (cycled); returns (losses, state)."""
+    state = h.init_train_state()
+    state = {k: state[k] for k in ("params", "opt_state", "mstate")}
+    step = h._get_train_step()
+    gen = torch.Generator(device=dev).manual_seed(h.cfg.seed + 1)
+    sr = torch.Generator(device=dev).manual_seed(h.cfg.seed + 2)
+    dbs = [to_device(b, dev) for b in batches]
+    losses = []
+    for i in range(n):
+        state, loss = step(state, dbs[i % len(dbs)], gen, sr)
+        losses.append(float(loss))
+    return losses, state
+
+
+def preset_bare(dev, work, name):
+    """A preset's harness off the CLI: its first training batches with and
+    without --slim_transfer (each preset gets both, whichever it sets),
+    their wire bytes per example, the host encode of one batch, the
+    decoded slim batches held equal to the full ones on the card, the
+    table and state bytes against f32, and the bare step (10 steps on 4
+    pre-built batches on the card, after 3). criteo_singlepass and
+    esmm_large_vocab also run 3 steps on each wire from the same init:
+    losses within 1e-6 relative."""
+    cfg = parse_config(preset_argv(dev, work, name, f"bare_{name}"))
+    hs, hf = Harness(cfg.replace(slim_transfer=True)), Harness(cfg.replace(slim_transfer=False))
+    slim, full = first_batches(hs, 4), first_batches(hf, 4)
+    b = cfg.batch_size
+    out = {"wire slim": wire_bytes(slim, b), "wire full": wire_bytes(full, b)}
+    if name.startswith("criteo"):
+        from tf_repos_tpu_torch.data.slim_wire import encode_batch
+
+        out["encode ms"] = best_s(lambda: encode_batch(full[0], cfg.static_fields))[0] * 1e3
+    else:
+        from tf_repos_tpu_torch.data.slim_wire import AliccpSlimEncoder
+
+        enc = AliccpSlimEncoder(**hf._aliccp_encoder_args())
+        out["encode ms"] = best_s(lambda: enc(dict(full[0])))[0] * 1e3
+    decoded_equal(name, hs, slim, full, dev)
+    if name in ("criteo_singlepass", "esmm_large_vocab"):
+        ls, _ = run_steps(hs, slim, dev, 3)
+        lf, _ = run_steps(hf, full, dev, 3)
+        rel = max(abs(x - y) / abs(y) for x, y in zip(ls, lf))
+        log(f"{name}: slim vs full wire, 3 steps from one init: losses {ls} vs {lf} (max rel "
+            f"{rel:.2e}, held at 1e-6)")
+        check(rel <= 1e-6, f"{name}: the slim and the full wire train to other losses")
+    h = hs if cfg.slim_transfer else hf
+    own = slim if cfg.slim_transfer else full
+    torch.cuda.reset_peak_memory_stats()
+    losses, state = run_steps(h, own, dev, 3)
+    out["store"], out["store f32"] = store_bytes(h, state)
+    step = h._get_train_step()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sr = torch.Generator(device=dev).manual_seed(2)
+    dbs = [to_device(x, dev) for x in own]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(10):
+        state, loss = step(state, dbs[i % 4], gen, sr)
+    torch.cuda.synchronize()
+    out["bare ms"] = (time.perf_counter() - t0) / 10 * 1e3
+    out["bare peak"] = torch.cuda.max_memory_allocated()
+    check(math.isfinite(float(loss)), f"{name}: bare step loss {float(loss)}")
+    if name == "esmm_large_vocab":
+        out["kernel batch"] = hs.model._decode(to_device(slim[0], dev))
+    if name == "din_large_vocab":
+        out["kernel batch"] = (hs.model._decode(to_device(slim[0], dev)), to_device(full[0], dev))
+    del state, dbs, hs, hf
+    torch.cuda.empty_cache()
+    return out
+
+
+def slim_decoded_kernels(dev, esmm_batch, din_batches):
+    """K3 and K4 on the COO stream the card decoded from the
+    esmm_large_vocab wire (idx from lo/hi or u16, dest from the counts, w
+    from the wire or the live mask), and K5 and K6 on DIN's compact
+    segment stream rebuilt on the card from the wire's counts, as
+    models/din.py rebuilds it (held equal to the packer's first): each
+    against its plain version (K3, K4, K5 within 1e-4 * sum |terms| +
+    1e-6 per element; K6 bit-exact)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    k = ESMM_WIDTH["embedding_size"]
+    b = esmm_batch
+    idx, dest, w = (b[key].reshape(-1) for key in (MHC_IDX, MHC_DEST, MHC_W))
+    s = b["__uids_emb"].shape[0]
+    g = b["y"].shape[0] * len(create_model(Config(**ESMM_WIDTH)).mh_coo_groups())
+    table = torch.randn((s, 3 * k), generator=gen, device=dev)[:, :k]
+    errs = {}
+    got = CP.coo_pool_rows(table, idx, dest, w, g)
+    errs["K3"] = held("coo_pool_rows (slim-decoded ESMM stream)", got,
+                      CP.coo_pool_rows_plain(table, idx, dest, w, g),
+                      CP.coo_pool_rows_plain(table.abs(), idx, dest, w.abs(), g))
+    dp = torch.randn((g, k), generator=gen, device=dev)
+    errs["K4"] = held("coo_accumulate_rows (slim-decoded ESMM stream)",
+                      CP.coo_accumulate_rows(dp, idx, dest, w, s),
+                      CP.coo_accumulate_rows_plain(dp, idx, dest, w, s),
+                      CP.coo_accumulate_rows_plain(dp.abs(), idx, dest, w.abs(), s))
+    dec, full = din_batches
+    cnt = dec[MHC_CNT].reshape(-1)
+    m = dec[MHC_IDX].shape[-1]
+    nz = cnt > 0
+    c_ix = torch.clamp(torch.cumsum(nz.to(torch.int32), 0, dtype=torch.int32) - 1, min=0)
+    cdest = torch.repeat_interleave(torch.cat([c_ix, c_ix.new_zeros(1)]),
+                                    torch.cat([cnt, (m - cnt.sum()).to(cnt.dtype).reshape(1)]),
+                                    output_size=m)
+    check(torch.equal(cdest, full[MHC_CDEST].reshape(-1)),
+          "DIN: the compact stream rebuilt from the wire's counts differs from the packer's")
+    gc = cnt.numel()
+    vals = torch.randn((m, k), generator=gen, device=dev)
+    errs["K5"] = held("sorted_segsum (DIN, cdest rebuilt from the counts)",
+                      SG.sorted_segsum(vals, cdest, gc), SG.sorted_segsum_plain(vals, cdest, gc),
+                      SG.sorted_segsum_plain(vals.abs(), cdest, gc))
+    src = torch.randn((gc, k), generator=gen, device=dev)
+    check(torch.equal(SG.sorted_expand(src, cdest), SG.sorted_expand_plain(src, cdest)),
+          "sorted_expand (DIN, cdest rebuilt from the counts) differs from its plain version")
+    log(f"kernels on slim-decoded inputs: ESMM M={idx.numel()} (live {int(w.ne(0).sum())}), "
+        f"S={s}, G={g}; DIN M={m}, {gc} bags; max abs err "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + ", K6 bit-exact")
+
+
+def preset_cli(dev, work, name):
+    """A preset through the CLI: train (every launch counter zeroed just
+    before and read just after; each kernel of the preset's step
+    launched as often as it runs a step, the others not at all), eval
+    (its loss the train run's final eval's within 1e-4 relative) and
+    export; a bf16 run's servable scored on 64 va lines by the card's and
+    a CPU scorer, held at 2e-2. Returns (result, launches, CLI
+    examples/s, peak device memory of the train run)."""
+    argv = preset_argv(dev, work, name, f"preset_{name}")
+    for mod in (SR, CP, SG, RS, FB):
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepClock() as clock:
+        res = cli.main(["--task_type=train", *argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {f.__name__: f.launches for f in COUNTED}
+    cfg = parse_config(argv)
+    rate = clock.ex_per_s(cfg.batch_size)
+    steps = res["step"]
+    log(f"preset {name}: {steps} steps in {wall:.1f} s wall, launches {launches}; CLI {rate:.0f} "
+        f"examples/s; peak device memory {peak / 2**30:.2f} GiB")
+    check(steps >= ESMM_STEPS and math.isfinite(res["loss"]), f"preset {name}: {res}")
+    for k, c in launches.items():
+        want = PRESET_KERNELS[name].get(k, 0) * steps
+        check(c == want, f"preset {name}: {k} launched {c} times in {steps} steps, expected {want}")
+    ev = cli.main(["--task_type=eval", *argv])
+    check(abs(ev["loss"] - res["loss"]) <= 1e-4 * abs(res["loss"]),
+          f"preset {name}: eval {ev['loss']} vs the train run's final eval {res['loss']}")
+    servable = os.path.dirname(cli.main(["--task_type=export", *argv]))
+    check(os.path.isdir(servable), f"preset {name}: no servable at {servable}")
+    if cfg.param_dtype in ("bfloat16", "bf16"):
+        card = Scorer(servable, batch_buckets=(64,), device=dev.type)
+        cpu = Scorer(servable, batch_buckets=(64,), warmup=False, device="cpu")
+        with open(os.path.join(work, "esmm_data", "va.samples.txt"), "rb") as f:
+            lines = [next(f) for _ in range(64)]
+        batch = parse_aliccp_lines(lines, ESMM_WIDTH["multi_hot_pad"])
+        inst = [{k: batch[k][i] for k in card.signature["inputs"]} for i in range(64)]
+        SR.reset_launches()
+        got = card.score(inst)
+        check(SR.expand_rows.launches >= 1, f"preset {name}: the scorer launched no expand_rows")
+        want = cpu.score(inst)
+        err = max(held_rel(f"preset {name} servable, card vs CPU scorer {k}", got[k], want[k], 2e-2)
+                  for k in want)
+        check(card.params["emb"].dtype == torch.float32, f"preset {name}: servable table dtype")
+        log(f"preset {name}: the servable of the bf16 run (f32 tables) scored on 64 va lines, card "
+            f"vs CPU max abs diff {err:.3e} (held at 2e-2)")
+        del card, cpu
+    torch.cuda.empty_cache()
+    return res, launches, rate, peak
+
+
+def presets_path(dev, work):
+    """The four single-process presets: each through the CLI, then its
+    bare step and wire (preset_bare); the kernels on the slim-decoded
+    inputs. Returns ({preset: (cli result, launches, CLI ex/s, peak,
+    preset_bare's numbers)}, card name filled in by the caller)."""
+    t0 = time.perf_counter()
+    out = {}
+    for name in PRESET_WIDTH:
+        res, launches, rate, peak = preset_cli(dev, work, name)
+        out[name] = (res, launches, rate, peak, preset_bare(dev, work, name))
+    slim_decoded_kernels(dev, out["esmm_large_vocab"][4].pop("kernel batch"),
+                         out["din_large_vocab"][4].pop("kernel batch"))
+    log(f"presets phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def bf16_step_check(label, cfg, mapped, dev):
+    """Each row update of 5 bf16 steps on the card against the same update
+    on the CPU from the same inputs: the card's store before it, its
+    gathered rows, ids and row gradients, and the same rounding noise
+    (the CPU generator's state before the draw, drawn through the noise
+    seam as in card_vs_cpu). Every store must come out equal but for
+    elements one bf16 ulp apart (their count printed): the card's and
+    the CPU's elementwise f32 math may differ in a last bit, which moves
+    a rounding only where the noise lands there. (The whole steps differ
+    by more: the row gradients' sums run in another order on the card,
+    and an update that cancels to near zero, m = 0.9 m + 0.1 g, turns
+    that round-off into several ulps; card_vs_cpu prints those.)"""
+    model = create_model(cfg)
+    (table,) = model.sparse_slots()
+    p0, m0 = model.init(torch.Generator().manual_seed(3))
+    tx = make_optimizer(cfg.optimizer, cfg.learning_rate)
+    sopt = SP.make_sparse_row_optimizer(cfg.optimizer, cfg.learning_rate,
+                                        fused_moments=cfg.fused_moments,
+                                        fused_table=cfg.fused_table, catchup=cfg.sparse_catchup)
+    step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
+    params = SP.cast_tables(model, tree_map(lambda x: x.clone().to(dev), p0), torch.bfloat16)
+    opt = SP.init_opt_state(model, tx, sopt, params)
+    mstate = tree_map(lambda x: x.clone().to(dev), m0)
+    sr = torch.Generator().manual_seed(11)
+    apply, draw = sopt.apply, RD.sr_noise
+    seen = {"apart": 0, "most": 0, "n": 0, "other": 0.0}
+
+    def checked_apply(aux, su, u, g, generator=None):
+        """The card's apply, then the CPU's on copies of its inputs."""
+        cpu_aux = {k: v.cpu().clone() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
+        cpu_sr = torch.Generator()
+        cpu_sr.set_state(generator.get_state())
+        out = apply(aux, su, u, g, generator)
+        apply(cpu_aux, su.cpu(), u.cpu(), g.cpu(), cpu_sr)
+        for k, v in cpu_aux.items():
+            if not isinstance(v, torch.Tensor):
+                continue
+            got = aux[k].cpu()
+            if v.dtype == torch.bfloat16:
+                ulps = (got.view(torch.int16).int() - v.view(torch.int16).int()).abs()
+                seen["apart"] += int((ulps > 0).sum())
+                seen["most"] = max(seen["most"], int(ulps.max()))
+                seen["n"] += ulps.numel()
+            else:
+                seen["other"] = max(seen["other"], float((got.double() - v.double()).abs().max()))
+        return out
+
+    sopt.apply = checked_apply
+    RD.sr_noise = lambda shape, generator, device: draw(shape, generator, "cpu").to(device)
+    try:
+        for b in mapped:
+            params, opt, mstate, loss = step(params, opt, mstate, to_device(b, dev), None, sr)
+    finally:
+        sopt.apply, RD.sr_noise = apply, draw
+    log(f"bf16 row updates {label}, card vs CPU on the same inputs and noise, 5 steps: "
+        f"{seen['apart']} of {seen['n']} bf16 store elements apart, at most {seen['most']} ulp; "
+        f"other stores max diff {seen['other']:.3e}")
+    check(seen["n"] > 0 and seen["most"] <= 1 and seen["other"] == 0.0,
+          f"{label}: the row update on the card differs from the CPU's")
+
+
+def bf16_trajectories(dev):
+    """card_vs_cpu on bf16 stores with the noise replayed: ESMM on the
+    fused store with catch-up (the esmm_large_vocab step: --mh_coo, no
+    --dma_scatter) at B=512, vocab 50k, pad 64; DeepFM --fused_moments
+    under Adam and FTRL at B=1,024; f32 towers; ReLU gates replayed."""
+    cfg = Config(**dict(ESMM_WIDTH, feature_size=50_000, batch_size=512, multi_hot_pad=64,
+                        compute_dtype="float32", param_dtype="bfloat16", dma_scatter=False,
+                        sparse_catchup=True))
+    chain = esmm_chain(create_model(cfg))
+    mapped = [chain(b) for b in esmm_batches(5, seed=7, batch=512, vocab=50_000, pad=64)]
+    card_vs_cpu("ESMM bf16 fused store, catch-up, B=512 vocab 50k pad 64", cfg, mapped, dev,
+                lambda p: [p["ctr_out"]["w"], p["cvr_out"]["w"]], gates=True)
+    bf16_step_check("ESMM bf16 fused store, catch-up", cfg, mapped, dev)
+    cfg0 = Config(**dict(WIDTH, batch_size=1024, compute_dtype="float32", fused_table=False,
+                         fused_moments=True, param_dtype="bfloat16"))
+    mapper = SparseBatchMapper(create_model(cfg0).sparse_slots())
+    mapped = [mapper(b) for b in zipf_batches(5, seed=7, batch=1024)]
+    for opt in ("Adam", "ftrl"):
+        card_vs_cpu(f"DeepFM --fused_moments {opt} bf16 B=1024", cfg0.replace(optimizer=opt),
+                    mapped, dev, lambda p: [p["fm_b"], p["out"]["w"]], gates=True)
+        bf16_step_check(f"DeepFM --fused_moments {opt}", cfg0.replace(optimizer=opt), mapped, dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke needs a GPU",
@@ -2816,6 +3345,8 @@ def main() -> int:
         fkp = field_block_kernel_phase(dev)
         zkp = zoo_kernel_phase(dev)
         ukp = unfused_kernel_phase(dev)
+        rounding_phase(dev)
+        bkp = bf16_store_kernel_phase(dev)
         rates = {}  # host-input stage times and CLI examples/s, printed with the bare steps
         launches = main_path(dev, work, rates)
         zoo = zoo_main_path(dev, work)
@@ -2824,6 +3355,7 @@ def main() -> int:
         elaunches = esmm_main_path(dev, work, rates)
         dlaunches = din_main_path(dev, work, rates)
         flaunches = field_block_main_path(dev, work, rates)
+        presets = presets_path(dev, work)
         serve_kp, serve_launches = serving_phase(dev, work)
         bare = bare_steps(dev, profile)
         ebare = esmm_bare_step(dev, profile)
@@ -2839,6 +3371,7 @@ def main() -> int:
         esmm_trajectory(dev)
         din_trajectory(dev)
         field_block_trajectory(dev)
+        bf16_trajectories(dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2881,6 +3414,13 @@ def main() -> int:
     kernels += [(name, "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164"
                  if name.startswith("expand") else "tf_repos_tpu/ops/pallas_sparse.py:208", ukp,
                  lazy_launches) for name in lazy_launches]
+    # K1/K2 on rows from the bf16 store, with the launches of the
+    # esmm_large_vocab CLI run
+    bf16_launches = {f"{k} (bf16 store, ESMM point)": presets["esmm_large_vocab"][1][k]
+                     for k in ("expand_rows", "accumulate_rows")}
+    kernels += [(name, "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164"
+                 if name.startswith("expand") else "tf_repos_tpu/ops/pallas_sparse.py:289", bkp,
+                 bf16_launches) for name in bf16_launches]
     report = []
     for name, src, replaces, phase, counts in kernels:
         ms, plain, lib = phase["t"][name]
@@ -2933,6 +3473,15 @@ def main() -> int:
             f"step {ms:.3f} ms = {r:.0f} examples/s ({rates[leg] / r:.3f} of the bare step){host}; "
             f"peak device memory CLI {peak / 2**30:.2f} GiB, bare step {bpeak / 2**30:.2f} GiB; "
             f"Python csv parse {rates['wide_n_deep python parse ms']:.1f} ms a batch on {card}")
+    for name, (res, launches, rate, peak, bare) in presets.items():
+        b = parse_config(preset_argv(dev, "", name, "x")).batch_size
+        r = b / bare["bare ms"] * 1e3
+        log(f"preset {name} (B={b}): CLI {rate:.0f} examples/s vs bare step {bare['bare ms']:.3f} ms "
+            f"= {r:.0f} examples/s ({rate / r:.3f} of the bare step); peak device memory CLI "
+            f"{peak / 2**30:.2f} GiB, bare step {bare['bare peak'] / 2**30:.2f} GiB; tables and "
+            f"state {bare['store'] / 2**20:.0f} MiB (f32: {bare['store f32'] / 2**20:.0f} MiB); "
+            f"wire {bare['wire slim']:.1f} B/example slim, {bare['wire full']:.1f} full; host "
+            f"encode {bare['encode ms']:.2f} ms a batch; {res['step']} steps on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -682,3 +682,93 @@ def test_wide_deep_scorer_on_card_matches_cpu(dev, tmp_path):
     got = card.score(inst)["prob"]
     assert SR.expand_rows.launches == before + 2
     np.testing.assert_allclose(got, cpu.score(inst)["prob"], rtol=2e-2, atol=1e-6)
+
+
+def test_stochastic_rounding_on_card_matches_cpu(dev):
+    """The rounding on the card equals the CPU's bit for bit for the same
+    noise (random bit patterns, NaNs and infinities among them), and a
+    generator on the card rounds 0.25 ulp above 1.0 up at a rate of
+    0.25 +- 0.01."""
+    from tf_repos_tpu_torch.ops import rounding as R
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 2 ** 32, 300_000, dtype=np.uint32).view(np.float32))
+    noise = torch.from_numpy(rng.integers(0, 1 << 16, x.numel()).astype(np.int32))
+    want = R.round_bits(x, noise).view(torch.int16)
+    got = R.round_bits(x.to(dev), noise.to(dev)).view(torch.int16).cpu()
+    assert torch.equal(got, want)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    up = R.stochastic_round_bf16(torch.full((200_000,), 1.0 + 0.25 * 2.0 ** -7, device=dev), gen)
+    assert abs(float((up.float() > 1.0).float().mean()) - 0.25) <= 0.01
+    with pytest.raises(RuntimeError):  # a CPU generator cannot draw on the card
+        R.stochastic_round_bf16(x.to(dev), torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("opt,kw", [("Adam", {"fused_table": True, "catchup": True}),
+                                    ("Adam", {"fused_moments": True}),
+                                    ("ftrl", {"fused_moments": True}), ("Adagrad", {})])
+def test_bf16_lazy_updates_on_card_match_cpu(dev, opt, kw, monkeypatch):
+    """Three updates of bf16 row stores on the card and on the CPU with the
+    same noise (drawn on the CPU and copied, for this comparison only):
+    every store equal but for elements one bf16 ulp apart (at most 1e-3 of
+    them: the f32 row math may differ in its last bit on the card), the
+    spare row held at zero."""
+    from tf_repos_tpu_torch.ops import rounding as R
+
+    draw = R.sr_noise
+    monkeypatch.setattr(R, "sr_noise", lambda shape, g, device: draw(shape, g, "cpu").to(device))
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.standard_normal((500, 6)).astype(np.float32)).to(torch.bfloat16)
+    us = [torch.from_numpy(np.concatenate([np.sort(rng.choice(500, 90, replace=False)),
+                                           np.full(38, 500)]).astype(np.int32)) for _ in range(3)]
+    gs = [torch.from_numpy(rng.standard_normal((128, 6)).astype(np.float32)) for _ in range(3)]
+    auxes = []
+    for d in ("cpu", dev):
+        sopt = SP.make_sparse_row_optimizer(opt, 1e-2, **kw)
+        aux = sopt.init(table.to(d))
+        gen = torch.Generator().manual_seed(9)
+        for u, g in zip(us, gs):
+            u = u.to(d)
+            sopt.apply(aux, sopt.gather(aux, u), u, g.to(d), gen)
+        auxes.append({k: v.cpu() for k, v in aux.items() if isinstance(v, torch.Tensor)})
+    for k, want in auxes[0].items():
+        got = auxes[1][k]
+        assert got.dtype == want.dtype and not bool(got[-1].any()), k
+        if got.dtype == torch.bfloat16:
+            ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+            assert int(ulps.max()) <= 1 and int((ulps > 0).sum()) <= 1e-3 * ulps.numel(), k
+        else:
+            assert torch.equal(got, want), k
+
+
+def test_slim_decode_on_card_matches_cpu(dev):
+    """The Ali-CCP wire (u16 ids, the lo/hi idx with the packed 17th bit,
+    the counts) and the Criteo wire decode on the card as on the CPU."""
+    from tf_repos_tpu_torch.data import slim_wire as W
+    from tf_repos_tpu_torch.data.sparse_batch import MHC_CNT, MHC_DEST, MHC_IDX, MHC_W
+    from tf_repos_tpu_torch.data.synthetic import synthetic_aliccp_batch, synthetic_criteo_batch
+    from tf_repos_tpu_torch.train.harness import to_device
+
+    rng = np.random.default_rng(0)
+    ngr, bs, m, bound = 3, 64, 2048, 1 << 17
+    cnt = rng.integers(0, 9, size=(1, ngr, bs))
+    dv = (np.arange(bs)[None, :] * ngr + np.arange(ngr)[:, None]).reshape(-1)
+    live = int(cnt.sum())
+    dest, idx = np.zeros((1, m), np.int32), np.zeros((1, m), np.int32)
+    dest[0, :live] = np.repeat(dv, cnt[0].reshape(-1))
+    idx[0, :live] = rng.integers(1, bound, live)
+    coo = {"y": np.zeros(bs, np.float32), "mask": np.ones(bs, np.float32),
+           "__uids_emb": np.zeros(bound, np.int32), MHC_IDX: idx, MHC_DEST: dest,
+           MHC_W: (idx > 0).astype(np.float32), MHC_CNT: cnt.astype(np.int32)}
+    cases = [(W.AliccpSlimEncoder(bound, n_groups=ngr)(coo), W.decode_aliccp_batch),
+             (W.AliccpSlimEncoder(600)(synthetic_aliccp_batch(rng, 16, 600, multi_hot_pad=8)),
+              W.decode_aliccp_batch),
+             (W.encode_batch(synthetic_criteo_batch(rng, 16, 400), 13),
+              lambda b: W.decode_batch(b, 13))]
+    assert cases[0][0][W.MHC_HI].shape[-1] == m // 8
+    for wire, decode in cases:
+        want = decode(to_device(wire, torch.device("cpu")))
+        got = decode(to_device(wire, dev))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype and torch.equal(got[k].cpu(), want[k]), k

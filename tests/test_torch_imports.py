@@ -54,7 +54,9 @@ def test_modules_listed():
     assert "tf_repos_tpu_torch.train.harness" in mods
     assert "tf_repos_tpu_torch.serve.server" in mods
     assert "tf_repos_tpu_torch.serve.export" in mods
-    for m in ("native", "pipeline", "cache", "tfrecord"):
+    assert "tf_repos_tpu_torch.ops.rounding" in mods
+    assert "tf_repos_tpu_torch.utils.convert" in mods
+    for m in ("native", "pipeline", "cache", "tfrecord", "slim_wire"):
         assert f"tf_repos_tpu_torch.data.{m}" in mods
     assert len(mods) >= 20
 

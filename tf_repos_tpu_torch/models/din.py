@@ -160,8 +160,11 @@ class DIN(CtrModel):
                 demb = rows[:, o : o + w] * vals[..., None]  # [B,P,K]
                 if cfg.attention_pooling:
                     p = demb.shape[1]
-                    ub = demb.reshape(b * p, -1)
-                    ax = ad_emb[f][:, None, :].expand(b, p, -1).reshape(b * p, -1)
+                    # the width spelled out: a pad of 0 (the servable
+                    # signature of a --multi_hot_pad=0 run) leaves -1 undefined
+                    k = demb.shape[-1]
+                    ub = demb.reshape(b * p, k)
+                    ax = ad_emb[f][:, None, :].expand(b, p, k).reshape(b * p, k)
                     wgt, att_state = self._att_mlp(
                         params, att_state, torch.cat([ub, ub - ax, ax], dim=1),
                         train=train, generator=generator,

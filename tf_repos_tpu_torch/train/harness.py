@@ -39,6 +39,16 @@ C++ (data/native.py), caches the parsed arrays beside each file under
 --packed_cache, and under --map_workers N runs the training split's map
 chain (bucketer, packer, mapper) on N threads in stream order; a
 Prefetcher thread keeps --prefetch_batches batches ready.
+--param_dtype=bfloat16 (with --sparse_table_update) stores the sparse
+tables and every row store of the lazy optimizer in bf16, written back
+with stochastic rounding from a generator of its own (seeded from
+--seed, on the step's device); eval, eval_loop, infer and export read
+f32 copies of the tables. --fused_moments keeps Adam's m|v (FTRL's n|z)
+in one [V,2K] row store. --slim_transfer (libsvm with --static_fields,
+or Ali-CCP) encodes every split's batches to the slim wire on the host
+(data/slim_wire.py; under --map_workers the Ali-CCP encoder joins the
+training split's map chain) and SlimWireModel decodes them on the
+device; export writes the wrapped model.
 --steps_per_dispatch K runs as a plain loop of K steps. Flags whose code
 path the port does not have yet (check_supported) raise
 NotImplementedError by name."""
@@ -59,6 +69,16 @@ from tf_repos_tpu_torch.data.csv import CsvDataset
 from tf_repos_tpu_torch.data.libsvm import LibsvmDataset, glob_input_files
 from tf_repos_tpu_torch.data.pipeline import Prefetcher, parallel_mapped_batches
 from tf_repos_tpu_torch.data.ragged import MH_PAIRS, AliccpDataset
+from tf_repos_tpu_torch.data.slim_wire import (
+    MHC_HI,
+    MHC_LO,
+    AliccpSlimEncoder,
+    SharedWireState,
+    SlimWireModel,
+    aliccp_encoding_batches,
+    decode_aliccp_batch,
+    encoding_batches,
+)
 from tf_repos_tpu_torch.data.sparse_batch import (
     MHC_CDEST,
     MHC_CIDX,
@@ -88,9 +108,6 @@ def check_supported(cfg: Config) -> None:
         "--mesh_data>1": cfg.mesh_data > 1,
         "--mesh_model>1": cfg.mesh_model > 1,
         "--dist_mode": cfg.dist_mode != 0,
-        "--slim_transfer": cfg.slim_transfer,
-        "--fused_moments": cfg.fused_moments,
-        f"--param_dtype={cfg.param_dtype}": cfg.param_dtype not in ("float32", "f32", ""),
         "--profile_steps": cfg.profile_steps > 0,
         "--check_numerics": cfg.check_numerics,
     }
@@ -104,9 +121,11 @@ def check_supported(cfg: Config) -> None:
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    """Host arrays -> tensors on ``device``. A read-only array (a view of
-    the packed cache's memmap) is copied first: torch.from_numpy would
-    alias it, and on the CPU the tensor would be that read-only memory."""
+    """Host arrays -> tensors on ``device``, dtypes kept (the slim wire's
+    uint16 and uint8 too: the decode widens them on the device). A
+    read-only array (a view of the packed cache's memmap) is copied
+    first: torch.from_numpy would alias it, and on the CPU the tensor
+    would be that read-only memory."""
     def tensor(v):
         a = np.ascontiguousarray(v)
         return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
@@ -160,6 +179,23 @@ class Harness:
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.model = create_model(cfg)
+        if cfg.slim_transfer:
+            fmt = input_format(self.model)
+            if fmt == "libsvm":
+                if cfg.static_fields <= 0:
+                    raise ValueError(
+                        "--slim_transfer requires --static_fields>0 (it "
+                        "reconstructs the constant-id continuous block from "
+                        "the same Criteo layout contract)"
+                    )
+                self.model = SlimWireModel(self.model)
+            elif fmt == "aliccp":
+                self.model = SlimWireModel(self.model, decode=decode_aliccp_batch)
+            else:
+                raise ValueError(
+                    "--slim_transfer supports libsvm and aliccp input "
+                    f"formats (model {self.model.name} reads {fmt})"
+                )
         # the canned wdl composite derives its rates from the model_type
         wdl_type = (cfg.model.lower() if cfg.model.lower() in ("wide", "deep")
                     else (cfg.model_type or "wide_n_deep").lower())
@@ -206,11 +242,23 @@ class Harness:
                 "--mh_bucket applies to the Ali-CCP padded multi-hot layout "
                 f"(model {self.model.name} reads {input_format(self.model)})"
             )
+        self._table_dtype = None
+        if cfg.param_dtype not in ("float32", "f32", ""):
+            if cfg.param_dtype not in ("bfloat16", "bf16"):
+                raise ValueError(f"unsupported param_dtype {cfg.param_dtype!r}")
+            if self._sparse_slots is None:
+                raise ValueError(
+                    "--param_dtype=bfloat16 requires --sparse_table_update "
+                    "(bf16 tables are written with stochastic rounding, "
+                    "which lives in the lazy sparse-update path)"
+                )
+            self._table_dtype = torch.bfloat16
         self._sopt = None
         if self._sparse_slots is not None:
             self._sopt = SP.make_sparse_row_optimizer(
-                cfg.optimizer, cfg.learning_rate, fused_table=cfg.fused_table,
-                catchup=cfg.sparse_catchup, dma_scatter=cfg.dma_scatter,
+                cfg.optimizer, cfg.learning_rate, fused_moments=cfg.fused_moments,
+                fused_table=cfg.fused_table, catchup=cfg.sparse_catchup,
+                dma_scatter=cfg.dma_scatter,
             )
         self._train_step = None
 
@@ -221,6 +269,9 @@ class Harness:
         params = tree_map(lambda t: t.to(self.device), params)
         mstate = tree_map(lambda t: t.to(self.device), mstate)
         if self._sopt is not None:
+            if self._table_dtype is not None:
+                # bf16 tables, so every row store made from them is bf16
+                params = SP.cast_tables(self.model, params, self._table_dtype)
             opt_state = SP.init_opt_state(self.model, self.tx, self._sopt, params)
         else:
             opt_state = self.tx.init(params)
@@ -261,7 +312,9 @@ class Harness:
         return make_field_block_lookup(cfg.feature_size, offsets, sizes)
 
     def _get_train_step(self):
-        """Unified signature: (state, device_batch, generator) -> (state, loss)."""
+        """Unified signature: (state, device_batch, generator, sr_generator)
+        -> (state, loss); ``generator`` drives dropout, ``sr_generator``
+        the stochastic rounding of bf16 row stores (the lazy step only)."""
         if self._train_step is not None:
             return self._train_step
         if self._sopt is not None:
@@ -269,11 +322,15 @@ class Harness:
                 self.model, self.tx, self._sopt, lookup=self.inner_lookup()
             )
         else:
-            inner = L.build_train_step(self.model, self.tx, lookup=self.field_block_lookup())
+            dense = L.build_train_step(self.model, self.tx, lookup=self.field_block_lookup())
 
-        def step(state, batch, generator):
+            def inner(p, o, m, b, g, sr):  # the dense step rounds nothing
+                return dense(p, o, m, b, g)
+
+        def step(state, batch, generator, sr_generator=None):
             p, o, m, loss = inner(
-                state["params"], state["opt_state"], state["mstate"], batch, generator
+                state["params"], state["opt_state"], state["mstate"], batch, generator,
+                sr_generator,
             )
             return {"params": p, "opt_state": o, "mstate": m}, loss
 
@@ -298,12 +355,13 @@ class Harness:
             raise FileNotFoundError(f"no {split}* {fmt} input files in {cfg.data_dir}")
         ds: Iterable = self._build_reader(files, fmt, shuffle=shuffle, epochs=epochs)
         factories = []
+        slim_in_chain = False
         if self._mh_bucket:
             # live-width slicing first: smaller id arrays for everything after
             factories.append(lambda: MhPadBucketer(MH_PAIRS, cfg.mh_bucket))
         if split == "tr" and self._sparse_slots is not None:
             if cfg.mh_coo:
-                combine = cfg.mh_coo_combine and self.model.coo_combine_ok()
+                combine = self._coo_combine_active()
                 if cfg.mh_coo_combine and not combine:
                     print(
                         f"WARNING: --mh_coo_combine disabled: {self.model.name} consumes "
@@ -314,15 +372,28 @@ class Harness:
                 # ids instead of every padded slot. The sorted-stream
                 # kernels need the compact segment stream, and
                 # --coo_sorted_bwd the idx-sorted stream; both only reach
-                # a kernel under --pallas_expand
+                # a kernel under --pallas_expand. Neither under
+                # --slim_transfer: the device rebuilds the compact stream
+                # from the wire's counts, and the sorted stream (8 B a
+                # slot) would undo the wire's saving, so the COO lookup
+                # keeps its plain backward there
                 groups = self.model.mh_coo_groups()
                 floor = max(cfg.mh_coo_floor, 1) if cfg.mh_coo_floor else 1024
-                cdest = cfg.pallas_expand and self.model.wants_sorted_seg()
-                saux = cfg.coo_sorted_bwd and cfg.pallas_expand and self.model.wants_sorted_aux()
+                slim = cfg.slim_transfer
+                cdest = cfg.pallas_expand and self.model.wants_sorted_seg() and not slim
+                saux = (cfg.coo_sorted_bwd and cfg.pallas_expand
+                        and self.model.wants_sorted_aux() and not slim)
                 factories.append(lambda: MhCooPacker(groups, floor=floor, combine=combine,
                                                      cdest_aux=cdest, sorted_aux=saux))
             slots, pad_mode = self._sparse_slots, cfg.sparse_pad_mode
             factories.append(lambda: SparseBatchMapper(slots, pad_mode=pad_mode))
+            if cfg.slim_transfer and cfg.map_workers > 1 and fmt == "aliccp":
+                # the encoder on the worker pool too, with one wire state
+                # for the pool (per-worker first-batch commits would
+                # diverge)
+                enc, shared = self._aliccp_encoder_args(), SharedWireState()
+                factories.append(lambda: AliccpSlimEncoder(shared=shared, **enc))
+                slim_in_chain = True
         if cfg.map_workers > 1 and split == "tr" and factories:
             # one chain a worker; pad widths re-padded at the ordered
             # output (data/pipeline.parallel_mapped_batches says why the
@@ -341,7 +412,31 @@ class Harness:
         else:
             for f in factories:
                 ds = mapped_batches(ds, f())
+        if cfg.slim_transfer and not slim_in_chain:
+            ds = self._slim_wrap(ds)
         return Prefetcher(ds, size=cfg.prefetch_batches)
+
+    def _coo_combine_active(self) -> bool:
+        """--mh_coo_combine applies only where every COO consumer is
+        linear in w; the slim encoder keys off it too (a combined w is a
+        count, not the live mask)."""
+        return bool(self.cfg.mh_coo and self.cfg.mh_coo_combine and self.model.coo_combine_ok())
+
+    def _aliccp_encoder_args(self) -> Dict[str, Any]:
+        """The Ali-CCP encoder's arguments: the id bound of unmapped
+        batches, the COO groups (the counts form on one process), and
+        whether the COO w may be dropped."""
+        cfg = self.cfg
+        return dict(vocab=cfg.feature_size, compress_coo=True,
+                    n_groups=len(self.model.mh_coo_groups()) if cfg.mh_coo else 0,
+                    drop_w_ok=not self._coo_combine_active())
+
+    def _slim_wrap(self, ds: Iterable) -> Iterable:
+        """The slim wire encoder over a split's batches (on the prefetch
+        thread); SlimWireModel decodes them in the step."""
+        if input_format(self.model) == "aliccp":
+            return aliccp_encoding_batches(ds, **self._aliccp_encoder_args())
+        return encoding_batches(ds, self.cfg.static_fields)
 
     def _build_reader(self, files: List[str], fmt: str, *, shuffle: bool, epochs: int) -> Iterable:
         cfg = self.cfg
@@ -369,7 +464,9 @@ class Harness:
             rules.update({MHC_IDX: 0, MHC_DEST: 0, MHC_W: 0.0, MHC_CDEST: 0,
                           # the idx-sorted stream (the device masks sorted
                           # positions >= the live count)
-                          MHC_PERM: 0, MHC_CIDX: 0, MHC_SROWS: 0})
+                          MHC_PERM: 0, MHC_CIDX: 0, MHC_SROWS: 0,
+                          # the slim wire's split idx (lo = hi = 0 is idx 0)
+                          MHC_LO: 0, MHC_HI: 0})
         if self._mh_bucket:
             for ids_f, vals_f in MH_PAIRS:
                 rules[ids_f] = 0
@@ -387,6 +484,8 @@ class Harness:
         train_step = self._get_train_step()
         K = max(cfg.steps_per_dispatch, 1)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        # the stochastic rounding's own stream, so dropout's does not shift
+        sr_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 2)
         writer = MetricsWriter(self.model_dir) if cfg.write_metrics else None
         stop = GracefulStop(cfg.graceful_shutdown)
         losses: List[torch.Tensor] = []
@@ -397,7 +496,7 @@ class Harness:
 
         def run_group(state, batches):
             for b in batches:
-                state, loss = train_step(state, to_device(b, self.device), gen)
+                state, loss = train_step(state, to_device(b, self.device), gen, sr_gen)
                 losses.append(loss)
             return state
 
@@ -456,7 +555,15 @@ class Harness:
         except FileNotFoundError:
             return {}
 
+    def _f32_params(self, params):
+        """Eval, infer and export read f32 tables (bf16 is a training
+        storage format; the upcast is a one-off [V,K] copy)."""
+        if self._table_dtype is None:
+            return params
+        return SP.upcast_tables_f32(self.model, params)
+
     def _run_eval(self, params, mstate) -> Dict[str, float]:
+        params = self._f32_params(params)
         eval_step = L.build_eval_step(self.model)
         acc = L.init_eval_acc(self.model, self.device)
         for batch in self._dataset("va", shuffle=False, epochs=1):
@@ -507,12 +614,13 @@ class Harness:
         from tf_repos_tpu_torch.ops.sparse_rows import make_serving_lookup
 
         ts = self._restore()
+        params = self._f32_params(ts["params"])
         predict_step = L.build_predict_step(self.model, lookup=make_serving_lookup())
         out_path = out_path or os.path.join(self.cfg.data_dir, "pred.txt")
         key = self.model.prediction_keys[0]
         with open(out_path, "w") as f:
             for batch in self._dataset("te", shuffle=False, epochs=1):
-                preds = predict_step(ts["params"], ts["mstate"], to_device(batch, self.device))[key]
+                preds = predict_step(params, ts["mstate"], to_device(batch, self.device))[key]
                 for p, m in zip(preds.cpu().numpy(), batch["mask"]):
                     if m > 0:
                         f.write(f"{p:f}\n")
@@ -524,8 +632,11 @@ class Harness:
 
         cfg = self.cfg
         ts = self._restore()
+        # the wrapped model: the slim wire is a training transfer format,
+        # not a serving signature
+        model = self.model.inner if isinstance(self.model, SlimWireModel) else self.model
         return export_servable(cfg.servable_model_dir or os.path.join(self.model_dir, "servable"),
-                               self.model, ts["params"], ts["mstate"])
+                               model, self._f32_params(ts["params"]), ts["mstate"])
 
 
 def run_task(cfg: Config) -> Dict[str, float] | str:

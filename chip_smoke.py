@@ -172,6 +172,31 @@ Phases, each fatal on failure (exit code 1, no result line):
      card decoded from the esmm_large_vocab wire, and K5 and K6 on DIN's
      compact stream rebuilt on the card from the wire's counts (equal to
      the packer's), each against its plain version;
+  6. the mesh (tf_repos_tpu_torch/parallel/, mesh_phase, after the
+     --field_blocks path): (a) DeepFM at the bench point on a 2x2 mesh,
+     four gloo ranks on the one card, the main path's 21 steps through
+     the harness, each step's loss within 2e-4 relative (+ 2e-5) of the
+     single-device run from the same init and batches (the JAX package's
+     sharded-vs-single bar), K1 and K2 once a step on every rank; (c) its
+     checkpoint evaluated on one device, loss and AUC held to the mesh's
+     own final eval likewise; (b) ESMM at the published point on a 1x2
+     mesh (--map_workers=2 on the ESMM path's cache), its logged losses
+     held to the single-device "cache hit" run's likewise, K2, K4 and K7
+     once a step and K1, K3 on every rank, and one more step checked on
+     rank 0's store shard: every row outside the step's uids bit-
+     unchanged, the lanes past 3K and the spare row 0; each leg's bare
+     step a rank, its collectives' time (each one synchronised and
+     timed) and share, beside the backend; (d) a one-rank NCCL group
+     running the sharded lazy step at 1x1 against the single-device step
+     for 3 steps (losses within 1e-6 relative, the w|m|v store within
+     1e-4: K2's atomics sum in another order on each run), the state's
+     shard/assemble round trip bit-exact on the card, and an NCCL
+     all-reduce and broadcast (the 1x1 step itself calls none); (e) --profile_steps=2 on the single-device
+     DeepFM CLI (the trace names expand_rows_kernel and
+     accumulate_rows_kernel) and --check_numerics on a poisoned run (exit
+     nonzero with FloatingPointError); then K1/K2 at the 2x2 rank's shapes
+     (as in f) and K7 on the 1x2 rank's store shard (bit-exact, timed
+     against index_copy_);
   5. 5-step trajectories with f32 towers on the card (kernels) against
      the same steps on the CPU (plain versions), same weights and
      batches: DeepFM at B=1024, ESMM --dma_scatter and DIN (both DIN
@@ -220,7 +245,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      one REST request of cont/cat instances through PredictionServer on
      the card equal to Scorer.score, and both gathers checked and timed
      as the serving gathers above;
-then the kernel report line and, last, the device line.
+then the kernel report line (with the mesh ranks' K1, K2, K3, K4 and K7
+rows) and, last, the device line. A rank of phase 6 is a spawned
+process: it imports this script (hence the __main__ guard) and the
+harness.
 """
 
 from __future__ import annotations
@@ -3303,6 +3331,456 @@ def bf16_trajectories(dev):
         bf16_step_check(f"DeepFM --fused_moments {opt}", cfg0.replace(optimizer=opt), mapped, dev)
 
 
+# ------------------------------------------------------------- phase 6: the mesh
+MESH_A = (2, 2)  # leg (a): DeepFM, data x model, four ranks on the one card
+MESH_B = (1, 2)  # leg (b): ESMM, model sharding
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class CollectiveClock:
+    """Host time spent in torch.distributed's all_reduce and broadcast
+    while entered, with the card synchronised before and after each call,
+    so that a collective's time is its own and not the queued work's."""
+
+    def __init__(self, dev):
+        self.dev, self.s, self.n = dev, 0.0, 0
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._saved = (dist.all_reduce, dist.broadcast)
+
+        def timed(fn):
+            def call(*a, **kw):
+                sync(self.dev)
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                sync(self.dev)
+                self.s += time.perf_counter() - t0
+                self.n += 1
+                return out
+
+            return call
+
+        dist.all_reduce, dist.broadcast = (timed(f) for f in self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce, dist.broadcast = self._saved
+
+
+def mesh_kernels():
+    return (SR.expand_rows, SR.accumulate_rows, CP.coo_pool_rows, CP.coo_accumulate_rows,
+            RS.dma_row_scatter)
+
+
+def mesh_bare_steps(h, n, check_store=False):
+    """The rank's bare sharded step on two batches of its training input
+    already on the card: n steps timed alone, then n with every
+    collective timed (CollectiveClock). check_store: one step first, and
+    the rank's store shard compared with its copy from before it: every
+    row outside the step's uids in this shard bit-unchanged, the lanes
+    past 3K and the spare row still 0."""
+    ts = h.init_train_state()
+    state = {k: ts[k] for k in ("params", "opt_state", "mstate")}
+    step = h._get_train_step()
+    it = iter(h._dataset("tr", shuffle=True, epochs=1))
+    host = [next(it), next(it)]
+    batches = [h._place(b) for b in host]
+    gen = torch.Generator(device=h.device).manual_seed(1)
+    sr = torch.Generator(device=h.device).manual_seed(2)
+    state, _ = step(state, batches[0], gen, sr)
+    out = {}
+    if check_store:
+        from tf_repos_tpu_torch.parallel.sparse_step import local_uids
+
+        (t,) = h.model.sparse_slots()
+        aux = state["opt_state"]["sparse"][t]
+        store = aux["wmv"]
+        before = store.clone()
+        vl = store.shape[0] - 1
+        u = batches[1][UIDS_PREFIX + t]
+        u_loc = local_uids(u, h.model.sparse_slots()[t].vocab, vl, h.mesh.m)
+        state, _ = step(state, batches[1], gen, sr)
+        sync(h.device)
+        keep = torch.ones(vl + 1, dtype=torch.bool, device=store.device)
+        keep[u_loc[u_loc < vl].long()] = False
+        k3 = 3 * aux["k"]
+        out["untouched_equal"] = bool(torch.equal(store[keep], before[keep]))
+        out["touched_rows"] = int((~keep).sum())
+        out["pad_lanes_zero"] = bool((store[:, k3:] == 0).all())
+        out["spare_zero"] = bool((store[-1] == 0).all())
+        out["pad_rows"] = int(max(0, (h.mesh.m + 1) * vl - h.model.sparse_slots()[t].vocab))
+        del before
+    sync(h.device)
+    h.mesh.barrier()
+    t0 = time.perf_counter()
+    for i in range(n):
+        state, loss = step(state, batches[i % 2], gen, sr)
+    sync(h.device)
+    out["step_ms"] = (time.perf_counter() - t0) / n * 1e3
+    h.mesh.barrier()
+    with CollectiveClock(h.device) as clock:
+        t0 = time.perf_counter()
+        for i in range(n):
+            state, loss = step(state, batches[i % 2], gen, sr)
+        sync(h.device)
+        out["clocked_step_ms"] = (time.perf_counter() - t0) / n * 1e3
+    out["collective_ms"] = clock.s / n * 1e3
+    out["collectives"] = clock.n / n
+    return out
+
+
+def mesh_rank(mesh, argv, n_bare, check_store):
+    """Rank program of legs (a) and (b): the harness's train task on this
+    rank (launch counters zeroed just before, read just after, every
+    rank's counts summed into a [ranks, kernels] table), then the bare
+    step timed (mesh_bare_steps)."""
+    import torch.distributed as dist
+
+    for mod in (SR, CP, RS):
+        mod.reset_launches()
+    h = Harness(parse_config(argv), mesh)
+    t0 = time.perf_counter()
+    res = h.train()
+    sync(mesh.device)
+    wall = time.perf_counter() - t0
+    counts = torch.zeros(mesh.size, len(mesh_kernels()), dtype=torch.int64)
+    counts[mesh.rank] = torch.tensor([f.launches for f in mesh_kernels()])
+    dist.all_reduce(counts)
+    bare = mesh_bare_steps(h, 5, check_store)
+    for mod in (SR, CP, RS):
+        mod.reset_launches()
+    peak = torch.cuda.max_memory_allocated(mesh.device) if mesh.device.type == "cuda" else 0
+    return {"res": res, "wall": wall, "counts": counts.tolist(), "bare": bare,
+            "backend": mesh.backend, "peak": peak}
+
+
+def nccl_rank(mesh, width, n_steps):
+    """Leg (d) on a one-rank NCCL group: the sharded lazy step at mesh 1x1
+    through parallel/sparse_step.py beside the single-device step
+    (train/sparse.py), from one init on the DeepFM point's batches;
+    ShardedSparseState's shard and assemble round trip (bit-exact) and its
+    assemble after the steps on the card; and an NCCL all-reduce and
+    broadcast of a tensor on the card. At 1x1 the step and assemble call
+    no collective (Mesh skips a group of one): those two are the leg's
+    only NCCL calls."""
+    import torch.distributed as dist
+
+    from tf_repos_tpu_torch.parallel.sparse_step import (
+        ShardedSparseState,
+        build_sharded_sparse_train_step,
+    )
+
+    dev = mesh.device
+    cfg = Config(**width)
+    model = create_model(cfg)
+    tx = make_optimizer(cfg.optimizer, cfg.learning_rate)
+    mapper = SparseBatchMapper(model.sparse_slots())
+    batches = [to_device(mapper(b), dev)
+               for b in zipf_batches(n_steps, seed=21, batch=cfg.batch_size, vocab=cfg.feature_size)]
+    runs = {}
+    for kind in ("single", "sharded"):
+        sopt = SP.make_sparse_row_optimizer("Adam", cfg.learning_rate, fused_table=True)
+        params, mstate = model.init(torch.Generator().manual_seed(4))
+        params = tree_map(lambda t: t.to(dev), params)
+        mstate = tree_map(lambda t: t.to(dev), mstate)
+        opt = SP.init_opt_state(model, tx, sopt, params)
+        if kind == "single":
+            step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
+        else:
+            init = opt["sparse"]["fm_wv"]["wmv"].clone()
+            sharder = ShardedSparseState(model, sopt, mesh)
+            st = sharder.shard({"params": params, "opt_state": opt, "mstate": mstate})
+            params, opt, mstate = st["params"], st["opt_state"], st["mstate"]
+            # shard, then assemble: the single-device store bit for bit
+            round_trip = torch.equal(sharder.assemble(st)["opt_state"]["sparse"]["fm_wv"]["wmv"],
+                                     init)
+            del init
+            step = build_sharded_sparse_train_step(
+                model, tx, sopt, mesh, {t: s.vocab for t, s in model.sparse_slots().items()},
+                inner_lookup=SR.make_expand_lookup())
+        losses = []
+        for b in batches:
+            params, opt, mstate, loss = step(params, opt, mstate, b)
+            losses.append(float(loss))
+        if kind == "sharded":
+            # the assembled store (gather_rows' device branch under NCCL):
+            # the shard's V real rows bit for bit, on the card, spare row 0
+            whole = sharder.assemble({"params": params, "opt_state": opt, "mstate": mstate})
+            ws = whole["opt_state"]["sparse"]["fm_wv"]["wmv"]
+            shard = opt["sparse"]["fm_wv"]["wmv"]
+            assembled = (ws.device == shard.device and torch.equal(ws[:-1], shard[: cfg.feature_size])
+                         and bool((ws[-1] == 0).all()))
+        # the 1x1 shard is padded to pad_vocab(V, 1) rows: compare the V real ones
+        runs[kind] = (losses, opt["sparse"]["fm_wv"]["wmv"][: cfg.feature_size].clone())
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    y = x.clone()
+    dist.all_reduce(y)
+    dist.broadcast(y, src=0)
+    sync(dev)
+    (l1, w1), (l2, w2) = runs["single"], runs["sharded"]
+    return {"backend": mesh.backend, "losses": (l1, l2), "round_trip": round_trip,
+            "assembled": assembled, "store_max_abs": float((w1 - w2).abs().max()),
+            "collective_ok": bool(torch.equal(x, y))}
+
+
+def train_losses(model_dir):
+    with open(os.path.join(model_dir, "smoke", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [(r["step"], r["loss"]) for r in recs if r["kind"] == "train"]
+
+
+def held_losses(label, got, want):
+    check([s for s, _ in got] == [s for s, _ in want], f"{label}: logged steps {got} vs {want}")
+    a, b = np.array([v for _, v in got]), np.array([v for _, v in want])
+    err = np.abs(a - b)
+    check(bool((err <= 2e-5 + 2e-4 * np.abs(b)).all()),
+          f"{label}: mesh losses {a.tolist()} vs single-device {b.tolist()}")
+    return float((err / np.abs(b)).max())
+
+
+def mesh_rank_line(label, out, steps, card):
+    bare = out["bare"]
+    share = bare["collective_ms"] / bare["clocked_step_ms"]
+    log(f"{label} on {out['backend']} ({card}): bare step {bare['step_ms']:.2f} ms a rank "
+        f"({bare['clocked_step_ms']:.2f} ms with each collective synchronised and timed); "
+        f"collectives {bare['collective_ms']:.2f} ms a step in {bare['collectives']:.0f} calls = "
+        f"{share:.3f} of the step; CLI {steps} steps in {out['wall']:.1f} s wall; peak device "
+        f"memory rank 0 {out['peak'] / 2**30:.2f} GiB")
+    return share
+
+
+def mesh_launches(label, out, steps, once, some=()):
+    """Every rank's count of each kernel the leg runs: those of ``once``
+    one a step, those of ``some`` at least once; alike on every rank."""
+    per = {}
+    for i, f in enumerate(mesh_kernels()):
+        if f.__name__ not in once + some:
+            continue
+        col = [row[i] for row in out["counts"]]
+        ok = all(c == steps for c in col) if f.__name__ in once else col[0] > 0
+        check(ok and len(set(col)) == 1,
+              f"{label}: {f.__name__} launched {col} times on the ranks in {steps} steps")
+        per[f.__name__] = col[0]
+    log(f"{label}: launches per rank {per} in {steps} steps (all ranks alike)")
+    return per
+
+
+def mesh_kernel_phase(dev):
+    """K1 and K2 at a 2x2 mesh rank's shapes (the rank's B/2 = 8,192 rows
+    of the DeepFM point's batch over the global working set, as
+    k1_k2_point holds and times them), and K7 at the 1x2 mesh rank's
+    store shard of the ESMM point: the [V/2 + 1, 128] store, the global
+    uids mapped to the shard (parallel/sparse_step.local_uids: other
+    shards' rows and the sentinel to the spare row, dropped by n_valid),
+    bit-exact against the masked assignment, timed against index_copy_ of
+    the shard's rows."""
+    from tf_repos_tpu_torch.ops.embedding import pad_vocab
+    from tf_repos_tpu_torch.parallel.sparse_step import local_uids
+
+    out = {"t": {}, "bound": {}, "bound_by": {}, "err": {}}
+    pt = deepfm_point(dev)
+    d, _ = MESH_A
+    rows = B // d
+    idx = pt["idx"].view(B, -1)[:rows].reshape(-1).contiguous()
+    k1_k2_point(out, "2x2 mesh rank", f"DeepFM's lookup on a rank's {rows} rows", pt["su"],
+                pt["k"], idx, pt["s"], pt["gen"])
+    model = create_model(Config(**ESMM_WIDTH))
+    vocab = ESMM_WIDTH["feature_size"]
+    u = torch.from_numpy(esmm_chain(model)(esmm_batches(1)[0])["__uids_emb"]).to(dev)
+    vl = pad_vocab(vocab, MESH_B[1]) // MESH_B[1]
+    u_loc = local_uids(u, vocab, vl, 0)
+    kept = int((u_loc < vl).sum())
+    k3 = 3 * ESMM_WIDTH["embedding_size"]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    store = torch.randn((vl + 1, 128), generator=gen, device=dev)
+    store[-1] = 0.0
+    rows3 = torch.randn((u.shape[0], k3), generator=gen, device=dev)
+    want = RS.dma_row_scatter_plain(store[:, :k3].clone(), u_loc, rows3, vl)
+    RS.dma_row_scatter(store[:, :k3], u_loc, rows3, n_valid=vl)
+    sync(dev)
+    check(torch.equal(store[:, :k3], want), "dma_row_scatter on the 1x2 mesh rank's shard differs "
+                                            "from the masked assignment")
+    del want
+    keep = u_loc < vl
+    u_live, r_live = u_loc[keep].long(), rows3[keep].contiguous()
+    view = store[:, :k3]
+    e = "dma_row_scatter (1x2 mesh rank)"
+    out["t"][e] = (cuda_ms(lambda: RS.dma_row_scatter(view, u_loc, rows3, n_valid=vl)),
+                   cuda_ms(lambda: RS.dma_row_scatter_plain(view, u_loc, rows3, vl), iters=10),
+                   cuda_ms(lambda: view.index_copy_(0, u_live, r_live)))
+    # least time: the shard's rows read and written once, the uids read
+    nbytes = 2 * kept * k3 * 4 + u.shape[0] * 4
+    out["bound"][e], out["bound_by"][e], out["err"][e] = nbytes / HBM_BYTES_PER_S * 1e3, "bytes", 0.0
+    ms, plain, lib = out["t"][e]
+    log(f"kernel {e}: store shard [{vl + 1}, 128] f32 (the step writes its {k3} live lanes), "
+        f"S={u.shape[0]}, {kept} uids in the shard: bit-exact  {ms:.4f} ms  plain {plain:.4f} ms  "
+        f"library (index_copy_) {lib:.4f} ms  bound {out['bound'][e]:.4f} ms "
+        f"({out['bound'][e] / ms:.2f} of it)")
+    del store, rows3, r_live
+    torch.cuda.empty_cache()
+    return out
+
+
+def poisoned_cli(dev, work):
+    """--check_numerics on the card: a DeepFM CLI run whose third training
+    line holds a feature value of 1e39 (inf in f32; the FM's inf - inf
+    makes the NaN). The CLI must exit nonzero with FloatingPointError."""
+    data = os.path.join(work, "nan_data")
+    os.makedirs(data)
+    write_synthetic_libsvm(os.path.join(data, "tr.libsvm"), 96, 400, seed=0)
+    p = os.path.join(data, "tr.libsvm")
+    with open(p) as f:
+        lines = f.read().splitlines()
+    head, rest = lines[2].split(" ", 1)
+    parts = rest.split(" ")
+    parts[14] = parts[14].split(":")[0] + ":1e39"
+    lines[2] = " ".join([head, *parts])
+    with open(p, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    r = subprocess.run(
+        [sys.executable, "-m", "tf_repos_tpu_torch.main", "--model=DeepFM", "--feature_size=400",
+         "--field_size=39", "--embedding_size=4", "--deep_layers=8,4", "--batch_size=32",
+         "--num_epochs=1", f"--data_dir={data}", f"--model_dir={work}/nan_model/",
+         "--eval_throttle_secs=0", "--check_numerics=true", f"--device={dev.type}"],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    check(r.returncode != 0 and "FloatingPointError" in r.stderr,
+          f"--check_numerics on a poisoned run: rc {r.returncode}, stderr {r.stderr[-2000:]}")
+    log(f"--check_numerics on the card: the poisoned DeepFM run exits {r.returncode} with "
+        f"{[l for l in r.stderr.splitlines() if 'FloatingPointError' in l][-1].strip()}")
+
+
+def profile_cli(dev, work, card):
+    """--profile_steps=2 on the single-device DeepFM CLI at the benchmark
+    point, a process of its own (this one's later torch.profiler counts
+    stay as they were): the trace under <model_dir>/profile must name the
+    hand-written K1 and K2 kernels (their CUDA function names)."""
+    argv = [f"--{k}={v}" for k, v in WIDTH.items()] + [
+        "--task_type=train", "--num_epochs=1", "--log_steps=7", f"--data_dir={work}/data",
+        f"--model_dir={work}/profiled/", "--dt_dir=smoke", "--eval_throttle_secs=0",
+        f"--device={dev.type}", "--seed=2018", "--profile_steps=2", "--profile_start_step=3"]
+    r = subprocess.run([sys.executable, "-m", "tf_repos_tpu_torch.main", *argv], cwd=HERE,
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"--profile_steps CLI run: rc {r.returncode}, {r.stderr[-2000:]}")
+    traces = [os.path.join(r, f) for r, _, fs in os.walk(f"{work}/profiled/smoke/profile")
+              for f in fs if f.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"--profile_steps wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    for name in ("expand_rows_kernel", "accumulate_rows_kernel"):
+        n = sum(name in k for k in kernels)
+        check(n >= 2, f"the --profile_steps trace names {name} {n} times in 2 steps")
+    log(f"--profile_steps=2 on {card}: {os.path.basename(traces[0])}, {len(kernels)} kernel "
+        f"events, expand_rows_kernel x{sum('expand_rows_kernel' in k for k in kernels)}, "
+        f"accumulate_rows_kernel x{sum('accumulate_rows_kernel' in k for k in kernels)}")
+
+
+def mesh_phase(dev, work, card):
+    """Phase 6, the mesh (parallel/): legs (a) DeepFM on a 2x2 mesh, four
+    ranks on the one card (gloo), the whole DeepFM main path epoch through
+    the harness, its per-step losses held to the single-device run's from
+    the same init and batches (rtol 2e-4, atol 2e-5: the JAX package's
+    sharded-vs-single bar), K1 and K2 once a step on every rank; (b) ESMM
+    at the published point on a 1x2 mesh (each rank half of the
+    lane-padded [4,500,000, 128] store), its logged losses held to the
+    single-device ESMM run on the same cache, K1-K4 and K7 once a step on
+    every rank, and the store shard bit-unchanged outside a step's uids;
+    (c) leg (a)'s checkpoint evaluated on one device equal to the mesh's
+    own final eval; (d) a one-rank NCCL group running the sharded lazy
+    step at 1x1 equal to the single-device step; (e) --profile_steps and
+    --check_numerics through the CLI. Then K1/K2 at the 2x2 rank's shapes
+    and K7 on the 1x2 rank's shard against their plain versions."""
+    from tf_repos_tpu_torch.parallel.launch import run_on_mesh
+
+    t_all = time.perf_counter()
+    res = {}
+    # (a) one-device reference, then the mesh, on the main path's files
+    base = [f"--{k}={v}" for k, v in WIDTH.items()] + [
+        "--task_type=train", "--num_epochs=1", "--log_steps=1", f"--data_dir={work}/data",
+        "--dt_dir=smoke", "--eval_throttle_secs=0", "--seed=2018"]
+    ref = cli.main([*base, f"--model_dir={work}/mesh_ref/", f"--device={dev.type}"])
+    d, m = MESH_A
+    argv = [*base, f"--model_dir={work}/mesh_a/", f"--mesh_data={d}", f"--mesh_model={m}"]
+    out = run_on_mesh(mesh_rank, (argv, 5, False), data=d, model=m, devices=[dev] * (d * m))
+    steps = out["res"]["step"]
+    check(steps == ref["step"] >= 10, f"leg (a) ran {steps} steps, the reference {ref['step']}")
+    rel = held_losses("leg (a) 2x2 DeepFM", train_losses(f"{work}/mesh_a"),
+                      train_losses(f"{work}/mesh_ref"))
+    res["a"] = dict(out, launches=mesh_launches("leg (a)", out, steps,
+                                                ("expand_rows", "accumulate_rows")), steps=steps)
+    res["a"]["share"] = mesh_rank_line(f"leg (a) DeepFM {d}x{m}, B={B} ({B // d} a rank)", out,
+                                       steps, card)
+    log(f"leg (a): {steps} steps' losses within {rel:.2e} relative of the single-device run's; "
+        f"eval loss {out['res']['loss']:.7f} vs {ref['loss']:.7f}, auc {out['res']['auc']:.7f} vs "
+        f"{ref['auc']:.7f}")
+    # (c) the mesh's checkpoint on one device
+    one = cli.main([*base, f"--model_dir={work}/mesh_a/", f"--device={dev.type}",
+                    "--task_type=eval", "--mesh_data=1", "--mesh_model=1"])
+    for k in ("loss", "auc"):
+        check(abs(one[k] - out["res"][k]) <= 2e-5 + 2e-4 * abs(out["res"][k]),
+              f"leg (c): the 2x2 checkpoint's {k} on one device {one[k]} vs the mesh's eval "
+              f"{out['res'][k]}")
+    log(f"leg (c): the 2x2 mesh's checkpoint evaluated on one device: loss {one['loss']:.7f} "
+        f"auc {one['auc']:.7f} (mesh {out['res']['loss']:.7f} / {out['res']['auc']:.7f})")
+
+    # (b) ESMM on the ESMM main path's cache, beside its single-device run
+    d, m = MESH_B
+    eargv = [f"--{k}={v}" for k, v in ESMM_WIDTH.items()] + [
+        "--task_type=train", "--num_epochs=1", "--log_steps=5", f"--data_dir={work}/esmm_data",
+        "--dt_dir=smoke", "--eval_throttle_secs=0", "--seed=2018", "--map_workers=2",
+        "--packed_cache=true", f"--model_dir={work}/mesh_b/", f"--mesh_data={d}",
+        f"--mesh_model={m}"]
+    out = run_on_mesh(mesh_rank, (eargv, 5, True), data=d, model=m, devices=[dev] * (d * m))
+    steps = out["res"]["step"]
+    rel = held_losses("leg (b) 1x2 ESMM", train_losses(f"{work}/mesh_b"),
+                      train_losses(f"{work}/esmm_hit"))
+    res["b"] = dict(out, launches=mesh_launches(
+        "leg (b)", out, steps, ("accumulate_rows", "coo_accumulate_rows", "dma_row_scatter"),
+        ("expand_rows", "coo_pool_rows")), steps=steps)
+    bare = out["bare"]
+    check(bare["untouched_equal"] and bare["pad_lanes_zero"] and bare["spare_zero"],
+          f"leg (b): store shard after a step: {bare}")
+    res["b"]["share"] = mesh_rank_line(f"leg (b) ESMM {d}x{m}, B={EB}", out, steps, card)
+    log(f"leg (b): logged losses within {rel:.2e} relative of the single-device run's; rank 0's "
+        f"store shard after one more step: {bare['touched_rows']} rows written, every other row "
+        f"bit-unchanged, lanes past 3K and the spare row 0, {bare['pad_rows']} pad_vocab rows "
+        f"in the shard")
+
+    # (d) NCCL, one rank
+    out = run_on_mesh(nccl_rank, (WIDTH, 3), data=1, model=1, devices=[dev])
+    check(out["backend"] == "nccl" and out["collective_ok"] and out["round_trip"]
+          and out["assembled"], f"leg (d): {out}")
+    (l1, l2) = out["losses"]
+    lrel = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
+    # K2's atomics sum in another order on each run: the stores are held
+    # as the card-vs-CPU trajectories hold theirs (1e-4, a fifth of one
+    # Adam step at lr 5e-4)
+    check(lrel <= 1e-6 and out["store_max_abs"] <= 1e-4,
+          f"leg (d): the 1x1 sharded step vs the single-device step: losses {l1} vs {l2}, store "
+          f"max abs diff {out['store_max_abs']}")
+    log(f"leg (d): one-rank NCCL group, the 1x1 sharded step vs the single-device step, 3 steps: "
+        f"losses within {lrel:.2e} relative, w|m|v store within {out['store_max_abs']:.2e}; "
+        f"ShardedSparseState.shard then assemble bit-exact to the single-device store, and "
+        f"assemble after the steps bit-exact to the shard on the card; an NCCL all_reduce and "
+        f"broadcast on the card (at 1x1 the step itself calls no collective)")
+
+    # (e) observability through the CLI
+    profile_cli(dev, work, card)
+    poisoned_cli(dev, work)
+    log(f"mesh phase: {time.perf_counter() - t_all:.1f} s")
+    res["kernels"] = mesh_kernel_phase(dev)
+    return res
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke needs a GPU",
@@ -3355,6 +3833,7 @@ def main() -> int:
         elaunches = esmm_main_path(dev, work, rates)
         dlaunches = din_main_path(dev, work, rates)
         flaunches = field_block_main_path(dev, work, rates)
+        mesh = mesh_phase(dev, work, card)
         presets = presets_path(dev, work)
         serve_kp, serve_launches = serving_phase(dev, work)
         bare = bare_steps(dev, profile)
@@ -3421,6 +3900,23 @@ def main() -> int:
     kernels += [(name, "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164"
                  if name.startswith("expand") else "tf_repos_tpu/ops/pallas_sparse.py:289", bkp,
                  bf16_launches) for name in bf16_launches]
+    # the mesh legs' kernels timed at a rank's own inputs, with the launches
+    # of one rank (every rank alike): K1/K2 at the 2x2 DeepFM rank's shapes,
+    # K7 on the 1x2 ESMM rank's store shard. A 1x2 rank's K3/K4 inputs are
+    # the single-device ESMM step's (the data axis is 1): the ESMM rows
+    # above stand for them, and mesh_launches checked their counts
+    mkp = mesh["kernels"]
+    mesh_counts = {f"{k} (2x2 mesh rank)": mesh["a"]["launches"][k]
+                   for k in ("expand_rows", "accumulate_rows")}
+    mesh_counts["dma_row_scatter (1x2 mesh rank)"] = mesh["b"]["launches"]["dma_row_scatter"]
+    kernels += [
+        ("expand_rows (2x2 mesh rank)", "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164",
+         mkp, mesh_counts),
+        ("accumulate_rows (2x2 mesh rank)", "sparse_rows.cu",
+         "tf_repos_tpu/ops/pallas_sparse.py:208", mkp, mesh_counts),
+        ("dma_row_scatter (1x2 mesh rank)", "row_scatter.cu",
+         "tf_repos_tpu/ops/pallas_sparse.py:1472", mkp, mesh_counts),
+    ]
     report = []
     for name, src, replaces, phase, counts in kernels:
         ms, plain, lib = phase["t"][name]

@@ -58,6 +58,10 @@ def test_modules_listed():
     assert "tf_repos_tpu_torch.utils.convert" in mods
     for m in ("native", "pipeline", "cache", "tfrecord", "slim_wire"):
         assert f"tf_repos_tpu_torch.data.{m}" in mods
+    for m in ("mesh", "launch", "distributed", "step", "sparse_step"):
+        assert f"tf_repos_tpu_torch.parallel.{m}" in mods
+    for m in ("observability", "tb_events"):
+        assert f"tf_repos_tpu_torch.utils.{m}" in mods
     assert len(mods) >= 20
 
 

@@ -228,18 +228,20 @@ class MhCooPacker:
     groups: ((field, has_vals), ...) in pooled-output order. The packer
     pops each group's padded ``<field>ids`` (and ``<field>vals``) and adds
 
-      __mhc_idx  int32[1, M_pad]  table id of the slot (the mapper remaps
+      __mhc_idx  int32[D, M_pad]  table id of the slot (the mapper remaps
                                   it to a position into __uids_<table>)
-      __mhc_dest int32[1, M_pad]  pooled row = b * n_groups + g
-      __mhc_w    f32[1, M_pad]    vals (val-bearing groups) or 1.0
-      __mhc_cnt  int32[1, n_groups, B]  live slots per (group, row)
+      __mhc_dest int32[D, M_pad]  pooled row = b_local * n_groups + g
+      __mhc_w    f32[D, M_pad]    vals (val-bearing groups) or 1.0
+      __mhc_cnt  int32[D, n_groups, B/D]  live slots per (group, row)
 
     Slots are emitted group-major, rows ascending, so each (group, row)
     bag is contiguous. Groups may have different widths (--mh_bucket
     slices each field on its own). M_pad grows monotonically over the
     quarter-pow2 ladder from ``floor``; padding entries are idx = dest =
-    0, w = 0 and add zero into pooled row 0. The leading axis of 1 is the
-    JAX package's data-shard axis (one shard on one device).
+    0, w = 0 and add zero into pooled row 0. The leading axis is the
+    JAX package's data-shard axis: D = n_data = 1 on one device; under a
+    mesh each data shard gets its own COO row over its B/D batch rows
+    (dest local to them), M_pad shared across shards.
 
     combine=True sums the weights of duplicate (row, id) pairs per group
     first (combine_dups, the C++ combine unless use_native=False), exact
@@ -254,10 +256,12 @@ class MhCooPacker:
     defaults cdest_aux on; its harness, like the port's, passes both)."""
 
     def __init__(self, groups, floor: int = 1024, combine: bool = False,
-                 cdest_aux: bool = False, sorted_aux: bool = False, use_native: bool = True):
+                 cdest_aux: bool = False, sorted_aux: bool = False, use_native: bool = True,
+                 n_data: int = 1):
         if not groups:
             raise ValueError("--mh_coo: model declares no multi-hot groups")
         self.groups = tuple(groups)
+        self.n_data = max(int(n_data), 1)
         self.combine = bool(combine)
         self.use_native = use_native
         self.cdest_aux = bool(cdest_aux)
@@ -265,17 +269,15 @@ class MhCooPacker:
         self._bucket = max(int(floor), 1)
         self._sbucket = 512
 
-    def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        batch = dict(batch)
+    def _pack(self, parts):
+        """One data shard's live slots: (idx, dest, w, cnt[n_groups, b])."""
         ngr = len(self.groups)
         idx_parts, dest_parts, w_parts = [], [], []
         cnt = None
-        for g, (f, has_vals) in enumerate(self.groups):
-            a = np.asarray(batch.pop(f + "ids"))
-            v = np.asarray(batch.pop(f + "vals")) if has_vals else None
+        for g, ((f, has_vals), (a, v)) in enumerate(zip(self.groups, parts)):
             b, p = a.shape
             if cnt is None:
-                cnt = np.zeros((1, ngr, b), np.int32)
+                cnt = np.zeros((ngr, b), np.int32)
             if self.combine:
                 ic, wc, cr = combine_dups(a, v, use_native=self.use_native)
                 rows = np.repeat(np.arange(b, dtype=np.int64), cr)
@@ -290,37 +292,60 @@ class MhCooPacker:
             idx_parts.append(ic)
             dest_parts.append((rows * ngr + g).astype(np.int32))
             w_parts.append(wc)
-            cnt[0, g] = cr
-        m = sum(x.size for x in idx_parts)
-        self._bucket = max(self._bucket, quarter_pow2(m))
-        idx = np.zeros((1, self._bucket), np.int32)
-        dest = np.zeros((1, self._bucket), np.int32)
-        w = np.zeros((1, self._bucket), np.float32)
-        idx[0, :m] = np.concatenate(idx_parts)
-        dest[0, :m] = np.concatenate(dest_parts)
-        w[0, :m] = np.concatenate(w_parts)
+            cnt[g] = cr
+        return (np.concatenate(idx_parts), np.concatenate(dest_parts),
+                np.concatenate(w_parts), cnt)
+
+    def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        batch = dict(batch)
+        groups = []
+        for f, has_vals in self.groups:
+            a = np.asarray(batch.pop(f + "ids"))
+            groups.append((a, np.asarray(batch.pop(f + "vals")) if has_vals else None))
+        b, nd = groups[0][0].shape[0], self.n_data
+        if b % nd:
+            raise ValueError(
+                f"--mh_coo: batch size {b} not divisible by the data-mesh size {nd}"
+            )
+        bs = b // nd
+        packed = [self._pack([(a[s * bs:(s + 1) * bs], None if v is None else v[s * bs:(s + 1) * bs])
+                              for a, v in groups]) for s in range(nd)]
+        self._bucket = max(self._bucket, quarter_pow2(max(x[0].size for x in packed)))
+        idx = np.zeros((nd, self._bucket), np.int32)
+        dest = np.zeros((nd, self._bucket), np.int32)
+        w = np.zeros((nd, self._bucket), np.float32)
+        for s, (ic, dc, wc, _) in enumerate(packed):
+            idx[s, : ic.size], dest[s, : ic.size], w[s, : ic.size] = ic, dc, wc
+        cnt = np.stack([x[3] for x in packed])
         batch[MHC_IDX], batch[MHC_DEST], batch[MHC_W], batch[MHC_CNT] = idx, dest, w, cnt
         if self.cdest_aux:
-            cf = cnt[0].reshape(-1)
-            c_of = (np.cumsum(cf > 0) - 1).astype(np.int32)
-            cdest = np.zeros((1, self._bucket), np.int32)
-            cdest[0, :m] = np.repeat(np.maximum(c_of, 0), cf)
+            cdest = np.zeros((nd, self._bucket), np.int32)
+            for s in range(nd):
+                cf = cnt[s].reshape(-1)
+                c_of = (np.cumsum(cf > 0) - 1).astype(np.int32)
+                live = np.repeat(np.maximum(c_of, 0), cf)
+                cdest[s, : live.size] = live
             batch[MHC_CDEST] = cdest
         if self.sorted_aux:
-            order = np.argsort(idx[0, :m], kind="stable").astype(np.int32)
-            si = idx[0, :m][order]
-            perm = np.zeros((1, self._bucket), np.int32)
-            cidx = np.zeros((1, self._bucket), np.int32)
-            runs = np.zeros(0, np.int32)
-            if m:
-                starts = np.empty(m, np.bool_)
-                starts[0] = True
-                starts[1:] = si[1:] != si[:-1]
-                cidx[0, :m] = (np.cumsum(starts) - 1).astype(np.int32)
-                runs = si[starts]
-            perm[0, :m] = order
-            self._sbucket = max(self._sbucket, quarter_pow2(runs.size))
-            srows = np.zeros((1, self._sbucket), np.int32)
-            srows[0, : runs.size] = runs
+            perm = np.zeros((nd, self._bucket), np.int32)
+            cidx = np.zeros((nd, self._bucket), np.int32)
+            runs_per = []
+            for s, (ic, _, _, _) in enumerate(packed):
+                m = ic.size
+                order = np.argsort(idx[s, :m], kind="stable").astype(np.int32)
+                si = idx[s, :m][order]
+                runs = np.zeros(0, np.int32)
+                if m:
+                    starts = np.empty(m, np.bool_)
+                    starts[0] = True
+                    starts[1:] = si[1:] != si[:-1]
+                    cidx[s, :m] = (np.cumsum(starts) - 1).astype(np.int32)
+                    runs = si[starts]
+                perm[s, :m] = order
+                runs_per.append(runs)
+            self._sbucket = max(self._sbucket, quarter_pow2(max(r.size for r in runs_per)))
+            srows = np.zeros((nd, self._sbucket), np.int32)
+            for s, runs in enumerate(runs_per):
+                srows[s, : runs.size] = runs
             batch[MHC_PERM], batch[MHC_CIDX], batch[MHC_SROWS] = perm, cidx, srows
         return batch

@@ -76,6 +76,11 @@ class CtrModel:
     def sparse_slots(self) -> Dict[str, SparseSlot]:
         return {}
 
+    def sharded_params(self) -> Tuple[str, ...]:
+        """The params a mesh row-shards over its "model" axis (the JAX
+        package's param_spec model-axis leaves): the sparse tables."""
+        return tuple(self.sparse_slots())
+
     def mh_coo_groups(self):
         """Multi-hot groups the host may pack as a COO triplet (--mh_coo;
         data/sparse_batch.MhCooPacker): ((field, has_vals), ...) in

@@ -48,6 +48,11 @@ class WideDeep(CtrModel):
     def has_deep(self) -> bool:
         return self.model_type in ("deep", "wide_n_deep")
 
+    def sharded_params(self):
+        """Both tables row-shard under a mesh, as in the JAX package's
+        param_spec, though neither is a sparse slot."""
+        return tuple(n for n, on in (("wide_cat", self.has_wide), ("emb", self.has_deep)) if on)
+
     def init(self, generator: Optional[torch.Generator]) -> Tuple[Params, State]:
         cfg = self.cfg
         params: Params = {"bias": torch.zeros(1)}

@@ -75,3 +75,54 @@ def fused_linear_lookup(
     y_lin = torch.sum(rows[..., 0] * vals, dim=1)
     emb = rows[..., 1:] * vals[..., None]
     return y_lin, emb
+
+
+def pad_vocab(feature_size: int, num_shards: int) -> int:
+    """Smallest padded vocab divisible by num_shards (and 8-row aligned)."""
+    align = num_shards * 8
+    return ((feature_size + align - 1) // align) * align
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """SUM all-reduce over a process group whose backward is the identity.
+
+    Every rank of the group computes the same cotangent of the sum (they
+    run the same forward on the same data slice), so the gradient of each
+    rank's addend is that cotangent as it is: the transpose of psum under
+    shard_map. torch.distributed.nn.functional.all_reduce would all-reduce
+    the cotangent again and scale the table gradient by the group size."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over_group(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """The group's SUM of ``x`` (identity backward); no collective when
+    the group has one rank."""
+    return x if size == 1 else _SumOverGroup.apply(x, group)
+
+
+def make_sharded_lookup(shard: int, n_shards: int, group) -> LookupFn:
+    """Lookup where ``table`` is this rank's row shard of a table padded
+    to n_shards equal shards (pad_vocab): each rank gathers the ids in its
+    row range (masked, clamped) and a SUM all-reduce over the ``model``
+    group assembles the rows. Ids past the padded vocab, and the sentinel
+    V when it lands in the padding, read zeros."""
+
+    def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        rows = table.shape[0]
+        local = ids - shard * rows
+        ok = (local >= 0) & (local < rows)
+        emb = table[local.clamp(0, rows - 1)]
+        mask = ok.to(emb.dtype)
+        emb = emb * (mask[..., None] if emb.ndim > ids.ndim else mask)
+        return sum_over_group(emb, group, n_shards)
+
+    return lookup

@@ -2,7 +2,9 @@
 for the JAX package's Orbax manager): ``ckpt-<step>.pt`` holding
 {"params", "opt_state", "mstate", "step"}, the newest
 ``keep_checkpoint_max`` kept. Views that share a row store are saved
-once and restored sharing it."""
+once and restored sharing it. A mesh saves the single-device state
+assembled from its shards (rank 0 writes it), so any mesh, or one
+device, restores any checkpoint."""
 
 from __future__ import annotations
 
@@ -40,8 +42,9 @@ class CheckpointManager:
             os.remove(os.path.join(self.directory, f"ckpt-{old}.pt"))
         return path
 
-    def restore(self, device) -> Optional[Dict[str, Any]]:
-        step = self.latest_step()
+    def restore(self, device, step: Optional[int] = None) -> Optional[Dict[str, Any]]:
+        """The checkpoint of ``step`` (default: the newest), or None."""
+        step = self.latest_step() if step is None else step
         if step is None:
             return None
         path = os.path.join(self.directory, f"ckpt-{step}.pt")

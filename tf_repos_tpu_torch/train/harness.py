@@ -49,9 +49,24 @@ or Ali-CCP) encodes every split's batches to the slim wire on the host
 (data/slim_wire.py; under --map_workers the Ali-CCP encoder joins the
 training split's map chain) and SlimWireModel decodes them on the
 device; export writes the wrapped model.
---steps_per_dispatch K runs as a plain loop of K steps. Flags whose code
-path the port does not have yet (check_supported) raise
-NotImplementedError by name."""
+--steps_per_dispatch K runs as a plain loop of K steps.
+
+The mesh (--mesh_data x --mesh_model, parallel/): run_task spawns one
+process a mesh position when the mesh has more than one (JAX's rule:
+none when one card is visible, or at --mesh_data=1 --mesh_model<=1; on
+--device=cpu every requested position is a process), and each rank runs
+this harness with its Mesh: the tables row-sharded over "model", the
+batch split over "data", the sharded dense or lazy step
+(parallel/step.py, parallel/sparse_step.py; --field_blocks is ignored
+there, as in JAX). Every rank reads the whole global batch stream and
+keeps its data slice. Rank 0 alone writes logs, metrics, checkpoints
+(the single-device state assembled from the shards, so any mesh or one
+device restores them), pred.txt and exports. --check_numerics raises
+FloatingPointError at the first step that makes a NaN, and
+--profile_steps traces steps [profile_start_step, +profile_steps) with
+torch.profiler into <model_dir>/profile (utils/observability.py). Flags
+whose code path the port does not have yet (check_supported:
+--dist_mode=2, the multi-host mesh) raise NotImplementedError by name."""
 
 from __future__ import annotations
 
@@ -59,7 +74,7 @@ import json
 import os
 import signal
 import time
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,10 +109,25 @@ from tf_repos_tpu_torch.data.sparse_batch import (
     mapped_batches,
 )
 from tf_repos_tpu_torch.models import create_model, input_format
+from tf_repos_tpu_torch.parallel.distributed import init_distributed, is_chief
+from tf_repos_tpu_torch.parallel.mesh import Mesh, mesh_devices
+from tf_repos_tpu_torch.parallel.sparse_step import (
+    ShardedSparseState,
+    build_sharded_sparse_train_step,
+)
+from tf_repos_tpu_torch.parallel.step import (
+    ShardedState,
+    build_sharded_eval_step,
+    build_sharded_predict_step,
+    build_sharded_train_step,
+    fold_seed,
+    slice_batch,
+)
 from tf_repos_tpu_torch.train import loop as L
 from tf_repos_tpu_torch.train import sparse as SP
 from tf_repos_tpu_torch.train.checkpoint import CheckpointManager, clear_existing_model
 from tf_repos_tpu_torch.train.optimizers import make_optimizer
+from tf_repos_tpu_torch.utils.observability import MetricsWriter, enable_nan_checks, profile_trace
 from tf_repos_tpu_torch.utils.platform import resolve_device
 from tf_repos_tpu_torch.utils.tree import tree_map
 
@@ -105,11 +135,9 @@ from tf_repos_tpu_torch.utils.tree import tree_map
 def check_supported(cfg: Config) -> None:
     """Reject, by name, every flag value whose path is not ported yet."""
     unsupported = {
-        "--mesh_data>1": cfg.mesh_data > 1,
-        "--mesh_model>1": cfg.mesh_model > 1,
-        "--dist_mode": cfg.dist_mode != 0,
-        "--profile_steps": cfg.profile_steps > 0,
-        "--check_numerics": cfg.check_numerics,
+        # the multi-host mesh: worker_hosts/task_index, per-host file
+        # shards, the cross-host uid union
+        "--dist_mode=2": cfg.dist_mode == 2,
     }
     bad = [name for name, hit in unsupported.items() if hit]
     if bad:
@@ -156,28 +184,44 @@ class GracefulStop:
             signal.signal(signal.SIGTERM, self._prev)
 
 
-class MetricsWriter:
-    """Append-only JSONL scalar events in model_dir/filename: {"step",
-    "wall", "kind", <scalars>}."""
+def mesh_shape(cfg: Config) -> Optional[Tuple[int, int]]:
+    """(data, model) of the mesh the CLI spawns, or None for one process:
+    JAX's rule (no mesh when one card is visible, or at --mesh_data=1
+    --mesh_model<=1; --mesh_data=-1 takes every visible card), with every
+    requested position a process on --device=cpu (-1 counts one there)."""
+    model = max(cfg.mesh_model, 1)
+    if torch.device(cfg.device).type == "cpu":
+        data = max(cfg.mesh_data, 1)
+    else:
+        n = torch.cuda.device_count()
+        if (n == 1 or cfg.mesh_data == 1) and cfg.mesh_model <= 1:
+            return None
+        data = cfg.mesh_data if cfg.mesh_data > 0 else max(n // model, 1)
+    return None if data * model == 1 else (data, model)
 
-    def __init__(self, model_dir: str, filename: str = "metrics.jsonl"):
-        os.makedirs(model_dir, exist_ok=True)
-        self._f = open(os.path.join(model_dir, filename), "a", buffering=1)
 
-    def write(self, step: int, scalars: Dict[str, float], kind: str = "train") -> None:
-        rec = {"step": int(step), "wall": time.time(), "kind": kind}
-        rec.update({k: float(v) for k, v in scalars.items()})
-        self._f.write(json.dumps(rec) + "\n")
-
-    def close(self) -> None:
-        self._f.close()
+def check_mesh(cfg: Config, data: int) -> None:
+    """What a mesh refuses, before any rank starts."""
+    if cfg.batch_size % data:
+        raise ValueError(
+            f"batch size {cfg.batch_size} not divisible by the data-mesh size {data}"
+        )
+    if cfg.slim_transfer:
+        raise NotImplementedError(
+            "--slim_transfer under a mesh: not implemented in tf_repos_tpu_torch yet "
+            "(the wire's arrays are not split by example)"
+        )
 
 
 class Harness:
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, mesh: Optional[Mesh] = None):
         check_supported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.mesh = mesh
+        if mesh is not None:
+            check_mesh(cfg, mesh.data)
+        self.device = mesh.device if mesh is not None else resolve_device(cfg.device)
+        self.chief = is_chief()
         self.model = create_model(cfg)
         if cfg.slim_transfer:
             fmt = input_format(self.model)
@@ -261,13 +305,25 @@ class Harness:
                 dma_scatter=cfg.dma_scatter,
             )
         self._train_step = None
+        self._sharded = None
+        if mesh is not None:
+            self._sharded = (ShardedState(self.model, mesh) if self._sopt is None
+                             else ShardedSparseState(self.model, self._sopt, mesh))
 
     # ---------------------------------------------------------- state init
     def init_train_state(self) -> Dict[str, Any]:
+        """The initial state; under a mesh made whole on the CPU, then cut
+        into the rank's shards."""
+        if self._sharded is None:
+            return dict(self._init_whole(self.device), step=0)
+        return dict(self._sharded.shard(self._init_whole(torch.device("cpu"))), step=0)
+
+    def _init_whole(self, dev: torch.device) -> Dict[str, Any]:
+        """The single-device initial state on ``dev``."""
         gen = torch.Generator().manual_seed(self.cfg.seed)
         params, mstate = self.model.init(gen)
-        params = tree_map(lambda t: t.to(self.device), params)
-        mstate = tree_map(lambda t: t.to(self.device), mstate)
+        params = tree_map(lambda t: t.to(dev), params)
+        mstate = tree_map(lambda t: t.to(dev), mstate)
         if self._sopt is not None:
             if self._table_dtype is not None:
                 # bf16 tables, so every row store made from them is bf16
@@ -275,11 +331,44 @@ class Harness:
             opt_state = SP.init_opt_state(self.model, self.tx, self._sopt, params)
         else:
             opt_state = self.tx.init(params)
-        return {"params": params, "opt_state": opt_state, "mstate": mstate, "step": 0}
+        return {"params": params, "opt_state": opt_state, "mstate": mstate}
 
-    def restore_or_init(self, ckpt: CheckpointManager) -> Dict[str, Any]:
-        restored = ckpt.restore(self.device)
-        return restored if restored is not None else self.init_train_state()
+    def restore_or_init(self, ckpt: CheckpointManager, step: Optional[int] = None) -> Dict[str, Any]:
+        """The checkpoint of ``step`` or the newest (the single-device
+        state, from any mesh), cut into the rank's shards under a mesh;
+        else the initial state."""
+        if self._sharded is None:
+            restored = ckpt.restore(self.device, step)
+            return restored if restored is not None else self.init_train_state()
+        restored = ckpt.restore("cpu", step)
+        if restored is None:
+            return self.init_train_state()
+        step = restored.pop("step", 0)
+        return dict(self._sharded.shard(restored), step=step)
+
+    def _save(self, ckpt: CheckpointManager, step: int, state: Dict[str, Any]) -> None:
+        """Checkpoint the single-device state: under a mesh assembled from
+        the shards (every rank takes part) and written by the chief."""
+        if self._sharded is not None:
+            state = self._sharded.assemble(state)
+        if self.chief:
+            ckpt.save(step, dict(state, step=step))
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _agree(self, value: int) -> int:
+        """The chief's ``value`` on every rank (a decision taken on one
+        clock, so that every rank enters the same collectives)."""
+        if self.mesh is None:
+            return value
+        t = torch.tensor([value], dtype=torch.int64, device=self.device)
+        return int(self.mesh.broadcast(t).item())
+
+    def _place(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A host batch on the device: the data rank's slice under a mesh."""
+        if self.mesh is not None:
+            batch = slice_batch(batch, self.mesh)
+        return to_device(batch, self.device)
 
     # --------------------------------------------------------- step builder
     def inner_lookup(self):
@@ -297,7 +386,7 @@ class Harness:
         field_block_scatter backward (ops/field_block.py). The dense step
         only: the lazy sparse step never reads the flag. None otherwise."""
         cfg = self.cfg
-        if not cfg.field_blocks or self._sparse_slots is not None:
+        if not cfg.field_blocks or self._sparse_slots is not None or self.mesh is not None:
             return None
         if cfg.field_blocks.startswith("auto:"):
             from tf_repos_tpu_torch.features.criteo import field_blocks_from_feature_map
@@ -317,7 +406,17 @@ class Harness:
         the stochastic rounding of bf16 row stores (the lazy step only)."""
         if self._train_step is not None:
             return self._train_step
-        if self._sopt is not None:
+        if self.mesh is not None and self._sopt is not None:
+            inner = build_sharded_sparse_train_step(
+                self.model, self.tx, self._sopt, self.mesh, self._sharded.vocab,
+                inner_lookup=self.inner_lookup(),
+            )
+        elif self.mesh is not None:
+            dense = build_sharded_train_step(self.model, self.tx, self.mesh)
+
+            def inner(p, o, m, b, g, sr):  # the dense step rounds nothing
+                return dense(p, o, m, b, g)
+        elif self._sopt is not None:
             inner = SP.build_sparse_train_step(
                 self.model, self.tx, self._sopt, lookup=self.inner_lookup()
             )
@@ -334,8 +433,8 @@ class Harness:
             )
             return {"params": p, "opt_state": o, "mstate": m}, loss
 
-        self._train_step = step
-        return step
+        self._train_step = enable_nan_checks(step) if self.cfg.check_numerics else step
+        return self._train_step
 
     # ------------------------------------------------------------- datasets
     def _dataset(self, split: str, *, shuffle: bool, epochs: int) -> Iterable:
@@ -383,8 +482,10 @@ class Harness:
                 cdest = cfg.pallas_expand and self.model.wants_sorted_seg() and not slim
                 saux = (cfg.coo_sorted_bwd and cfg.pallas_expand
                         and self.model.wants_sorted_aux() and not slim)
+                n_data = self.mesh.data if self.mesh is not None else 1
                 factories.append(lambda: MhCooPacker(groups, floor=floor, combine=combine,
-                                                     cdest_aux=cdest, sorted_aux=saux))
+                                                     cdest_aux=cdest, sorted_aux=saux,
+                                                     n_data=n_data))
             slots, pad_mode = self._sparse_slots, cfg.sparse_pad_mode
             factories.append(lambda: SparseBatchMapper(slots, pad_mode=pad_mode))
             if cfg.slim_transfer and cfg.map_workers > 1 and fmt == "aliccp":
@@ -483,11 +584,20 @@ class Harness:
         state = {k: ts[k] for k in ("params", "opt_state", "mstate")}
         train_step = self._get_train_step()
         K = max(cfg.steps_per_dispatch, 1)
-        gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
-        # the stochastic rounding's own stream, so dropout's does not shift
+        if K > 1 and cfg.profile_steps:
+            print("WARNING: --profile_steps requires steps_per_dispatch=1 "
+                  "(the trace window brackets individual dispatches)")
+        # dropout's stream is the data rank's own (fold_seed); the
+        # stochastic rounding's is the same on every rank, so dropout's
+        # draws do not shift it
+        d = self.mesh.d if self.mesh is not None else 0
+        gen = torch.Generator(device=self.device).manual_seed(fold_seed(cfg.seed + 1, d))
         sr_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 2)
-        writer = MetricsWriter(self.model_dir) if cfg.write_metrics else None
-        stop = GracefulStop(cfg.graceful_shutdown)
+        writer = MetricsWriter(self.model_dir) if cfg.write_metrics and self.chief else None
+        # one rank's SIGTERM must not stop it alone: the cross-rank OR of
+        # the flag comes with the multi-host mesh
+        stop = GracefulStop(cfg.graceful_shutdown and self.mesh is None)
+        profiler = None
         losses: List[torch.Tensor] = []
         t0 = time.time()
         last_log, last_eval, last_log_step = t0, t0, step
@@ -496,17 +606,23 @@ class Harness:
 
         def run_group(state, batches):
             for b in batches:
-                state, loss = train_step(state, to_device(b, self.device), gen, sr_gen)
+                state, loss = train_step(state, self._place(b), gen, sr_gen)
                 losses.append(loss)
             return state
 
         for batch in self._dataset("tr", shuffle=True, epochs=cfg.num_epochs):
+            if K == 1 and cfg.profile_steps and step == cfg.profile_start_step:
+                profiler = profile_trace(os.path.join(self.model_dir, "profile"), self.device)
+                profiler.__enter__()
             group.append(batch)
             if len(group) < K:
                 continue
             state = run_group(state, group)
             step += len(group)
             group = []
+            if profiler and step >= cfg.profile_start_step + cfg.profile_steps:
+                profiler.__exit__()
+                profiler = None
             # cadence boundaries: "crossed within this group of K steps"
             if step % cfg.log_steps < K:
                 now = time.time()
@@ -521,10 +637,11 @@ class Harness:
                     writer.write(step, {"loss": mean_loss, "examples_per_sec": rate * cfg.batch_size})
                 losses = []
             if cfg.save_checkpoints_steps and step % cfg.save_checkpoints_steps < K:
-                ckpt.save(step, dict(state, step=step))
+                self._save(ckpt, step, state)
             if cfg.eval_throttle_secs and step % cfg.eval_decision_steps < K:
-                # (a negative throttle evals at every decision boundary)
-                if time.time() - last_eval > cfg.eval_throttle_secs:
+                # (a negative throttle evals at every decision boundary);
+                # under a mesh the chief's clock decides for every rank
+                if self._agree(int(time.time() - last_eval > cfg.eval_throttle_secs)):
                     metrics = self._maybe_eval(state["params"], state["mstate"])
                     if writer and metrics:
                         writer.write(step, metrics, kind="eval")
@@ -535,8 +652,10 @@ class Harness:
         if group and not stop.requested:  # tail of an unfinished K-group
             state = run_group(state, group)
             step += len(group)
+        if profiler:
+            profiler.__exit__()
         stop.restore()
-        ckpt.save(step, dict(state, step=step))
+        self._save(ckpt, step, state)
         if not stop.requested:
             metrics = self._maybe_eval(state["params"], state["mstate"]) or metrics
         else:
@@ -564,10 +683,13 @@ class Harness:
 
     def _run_eval(self, params, mstate) -> Dict[str, float]:
         params = self._f32_params(params)
-        eval_step = L.build_eval_step(self.model)
+        if self.mesh is not None:
+            eval_step = build_sharded_eval_step(self.model, self.mesh)
+        else:
+            eval_step = L.build_eval_step(self.model)
         acc = L.init_eval_acc(self.model, self.device)
         for batch in self._dataset("va", shuffle=False, epochs=1):
-            acc = eval_step(params, mstate, acc, to_device(batch, self.device))
+            acc = eval_step(params, mstate, acc, self._place(batch))
         res = L.finalize_eval(acc)
         print("INFO: eval:", " ".join(f"{k} = {v:.6f}" for k, v in res.items()))
         return res
@@ -582,17 +704,20 @@ class Harness:
     def evaluate_loop(self) -> Dict[str, float]:
         """Continuous evaluator: poll model_dir for new checkpoints and
         evaluate each, until none has appeared for eval_loop_timeout
-        seconds (the reference's dedicated evaluator role)."""
+        seconds (the reference's dedicated evaluator role). Under a mesh
+        the chief's poll decides for every rank."""
         cfg = self.cfg
-        writer = MetricsWriter(self.model_dir, filename="eval_metrics.jsonl") if cfg.write_metrics else None
+        writer = (MetricsWriter(self.model_dir, filename="eval_metrics.jsonl")
+                  if cfg.write_metrics and self.chief else None)
         ckpt = CheckpointManager(self.model_dir, keep=cfg.keep_checkpoint_max)
         last_step = None
         last_new = time.time()
         metrics: Dict[str, float] = {}
-        while time.time() - last_new < cfg.eval_loop_timeout:
-            step = ckpt.latest_step()
-            if step is not None and step != last_step:
-                ts = self.restore_or_init(ckpt)
+        while self._agree(int(time.time() - last_new < cfg.eval_loop_timeout)):
+            latest = ckpt.latest_step()
+            step = self._agree(-1 if latest is None else latest)
+            if step >= 0 and step != last_step:
+                ts = self.restore_or_init(ckpt, step)
                 metrics = self._run_eval(ts["params"], ts["mstate"])
                 metrics["step"] = step
                 if writer:
@@ -607,46 +732,92 @@ class Harness:
     # ----------------------------------------------------------------- infer
     def infer(self, out_path: Optional[str] = None) -> str:
         """Predict over the te* files -> pred.txt (one probability of the
-        model's first prediction key a line, padding rows skipped), with
-        the predict step and the serving lookup: K1 over the whole table
-        on the card, the ids normalised as JAX's gather treats them. One
-        process; the multi-process form waits for the multi-GPU port."""
+        model's first prediction key a line, padding rows skipped). On one
+        device with the predict step and the serving lookup: K1 over the
+        whole table on the card, the ids normalised as JAX's gather
+        treats them. Under a mesh with the sharded predict step (every
+        rank its data slice over its table shards), the predictions in
+        global batch order, written by the chief."""
         from tf_repos_tpu_torch.ops.sparse_rows import make_serving_lookup
 
         ts = self._restore()
         params = self._f32_params(ts["params"])
-        predict_step = L.build_predict_step(self.model, lookup=make_serving_lookup())
+        if self.mesh is not None:
+            predict_step = build_sharded_predict_step(self.model, self.mesh)
+        else:
+            predict_step = L.build_predict_step(self.model, lookup=make_serving_lookup())
         out_path = out_path or os.path.join(self.cfg.data_dir, "pred.txt")
         key = self.model.prediction_keys[0]
-        with open(out_path, "w") as f:
+        f = open(out_path, "w") if self.chief else None
+        try:
             for batch in self._dataset("te", shuffle=False, epochs=1):
-                preds = predict_step(params, ts["mstate"], to_device(batch, self.device))[key]
-                for p, m in zip(preds.cpu().numpy(), batch["mask"]):
-                    if m > 0:
-                        f.write(f"{p:f}\n")
+                preds = predict_step(params, ts["mstate"], self._place(batch))[key]
+                if f is not None:
+                    for p, m in zip(preds.cpu().numpy(), batch["mask"]):
+                        if m > 0:
+                            f.write(f"{p:f}\n")
+        finally:
+            if f is not None:
+                f.close()
         return out_path
 
     # ---------------------------------------------------------------- export
     def export(self) -> str:
+        """The unpadded single-device servable, written by the chief (a
+        checkpoint holds the single-device state on every mesh)."""
         from tf_repos_tpu_torch.serve.export import export_servable
 
         cfg = self.cfg
-        ts = self._restore()
+        out = cfg.servable_model_dir or os.path.join(self.model_dir, "servable")
+        if not self.chief:
+            self.mesh.barrier()
+            return out
+        if self.mesh is None:
+            ts = self._restore()
+        else:
+            ckpt = CheckpointManager(self.model_dir, keep=cfg.keep_checkpoint_max)
+            ts = ckpt.restore(self.device) or self._init_whole(self.device)
         # the wrapped model: the slim wire is a training transfer format,
         # not a serving signature
         model = self.model.inner if isinstance(self.model, SlimWireModel) else self.model
-        return export_servable(cfg.servable_model_dir or os.path.join(self.model_dir, "servable"),
-                               model, self._f32_params(ts["params"]), ts["mstate"])
+        path = export_servable(out, model, self._f32_params(ts["params"]), ts["mstate"])
+        if self.mesh is not None:
+            self.mesh.barrier()
+        return path
+
+
+def _dispatch(h: Harness, task_type: str) -> Dict[str, float] | str:
+    tasks = {"train": h.train, "eval": h.evaluate, "eval_loop": h.evaluate_loop,
+             "infer": h.infer, "export": h.export}
+    if task_type not in tasks:
+        raise ValueError(f"unknown task_type {task_type!r}")
+    return tasks[task_type]()
+
+
+def run_task_on_mesh(mesh: Mesh, cfg: Config) -> Dict[str, float] | str:
+    """One mesh rank's task (parallel/launch.run_on_mesh calls it)."""
+    return _dispatch(Harness(cfg, mesh), cfg.task_type)
 
 
 def run_task(cfg: Config) -> Dict[str, float] | str:
-    """CLI entry: task_type dispatch."""
+    """CLI entry: task_type dispatch, on one process or on a spawned mesh
+    (mesh_shape) with one card a rank, or the CPU for every rank."""
     echo_config(cfg)
-    h = Harness(cfg)
+    check_supported(cfg)
+    init_distributed(cfg)
+    shape = mesh_shape(cfg)
+    if shape is None:
+        h = Harness(cfg)
+        if cfg.clear_existing_model and cfg.task_type == "train":
+            clear_existing_model(cfg.resolved_model_dir())
+        return _dispatch(h, cfg.task_type)
+    data, model = shape
+    check_mesh(cfg, data)
+    if cfg.task_type not in ("train", "eval", "eval_loop", "infer", "export"):
+        raise ValueError(f"unknown task_type {cfg.task_type!r}")
     if cfg.clear_existing_model and cfg.task_type == "train":
         clear_existing_model(cfg.resolved_model_dir())
-    tasks = {"train": h.train, "eval": h.evaluate, "eval_loop": h.evaluate_loop,
-             "infer": h.infer, "export": h.export}
-    if cfg.task_type not in tasks:
-        raise ValueError(f"unknown task_type {cfg.task_type!r}")
-    return tasks[cfg.task_type]()
+    from tf_repos_tpu_torch.parallel.launch import run_on_mesh
+
+    return run_on_mesh(run_task_on_mesh, (cfg,), data=data, model=model,
+                       devices=mesh_devices(data, model, cfg.device))

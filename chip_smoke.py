@@ -7,6 +7,8 @@
     python3 chip_smoke.py --profile --trace=PATH   # and writes their Chrome traces
                                                    # (PATH, and PATH with _esmm, _din,
                                                    # _zoo_<model>...)
+    python3 chip_smoke.py --only=multihost         # phase 7 alone (writes the main
+                                                   # paths' files itself; no result line)
 
 Four main paths, each driven through the CLI with every launch counter
 set to 0 just before and read just after, then serving from their
@@ -197,6 +199,30 @@ Phases, each fatal on failure (exit code 1, no result line):
      nonzero with FloatingPointError); then K1/K2 at the 2x2 rank's shapes
      (as in f) and K7 on the 1x2 rank's store shard (bit-exact, timed
      against index_copy_);
+  7. several hosts (--dist_mode=2; multihost_phase, after phase 6): two
+     host processes on 127.0.0.1 (free ports) whose ranks share the one
+     card over gloo, each through the launcher's host entry
+     (parallel/launch.run_on_hosts) with an explicit device list: (a)
+     DeepFM at the bench width with the multihost preset's flags, 2x2
+     over two hosts, 16 steps on each host's 16-batch file (slices of
+     the main path's lines), both hosts' loss lines equal, the logged
+     losses held to the single-device step on the same global batches
+     (phase 6's bar) and the store within 1e-4, K1 and K2 once a step
+     on all 4 ranks; (b) ESMM --mh_coo --dma_scatter at the published
+     point, 2x1 over two hosts, 8 steps, held likewise, K2, K4, K7 once
+     and K3 at least once a step on each rank, each host's own COO
+     bucket beside the cross-host one; (c) (a)'s checkpoint inferred on
+     two hosts over te files of 3 batches and 5,000 lines (the template
+     path), held to the one-process pred.txt (rtol 1e-5, one unit of its
+     sixth decimal); (d) --slim_transfer on a one-host 2x2 mesh, 5
+     steps, held to the unwired mesh run (losses as (a), store 1e-4);
+     (e) the port's Criteo surrogate (300,000 train lines from worker
+     processes, 50,000 test lines, the Bayes ceiling), its preprocessor,
+     then DeepFM's dense step one epoch on --field_blocks=auto:<feature_map>
+     (K8 once a step), eval AUC and exact_auc over SURR_AUC_BAR beside
+     the ceiling; then K1/K2 at a two-host rank's shapes, K3/K4 on one
+     host's COO re-padded to the cross-host bucket and K7 with the global
+     uids (consensus_point), and K8 on the surrogate's blocks;
   5. 5-step trajectories with f32 towers on the card (kernels) against
      the same steps on the CPU (plain versions), same weights and
      batches: DeepFM at B=1024, ESMM --dma_scatter and DIN (both DIN
@@ -245,10 +271,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      one REST request of cont/cat instances through PredictionServer on
      the card equal to Scorer.score, and both gathers checked and timed
      as the serving gathers above;
-then the kernel report line (with the mesh ranks' K1, K2, K3, K4 and K7
-rows) and, last, the device line. A rank of phase 6 is a spawned
-process: it imports this script (hence the __main__ guard) and the
-harness.
+then the kernel report line (with the mesh ranks' K1, K2 and K7 rows,
+and phase 7's K1, K2, K3, K4, K7 and K8 rows) and, last, the device
+line. A rank of phase 6 or 7 is a spawned process, and a phase-7 host
+a process of its own: both import this script (hence the __main__
+guard) and the harness.
 """
 
 from __future__ import annotations
@@ -1347,12 +1374,43 @@ def deepfm_host_timings(path):
     return {"deepfm python parse ms": t_py * 1e3, "deepfm native parse ms": t_nat * 1e3}
 
 
+def write_in_parts(kind, path, rows, seed, **kw):
+    """A synthetic training file from one writer process a host core, all
+    started together (the writers draw a line at a time in Python), each
+    writing a part of the rows from its own seed (seed + part), the parts
+    then joined into ``path``. kind: "libsvm" or "aliccp" (the published
+    multi-hot lengths)."""
+    parts = max(1, min(8, (os.cpu_count() or 2) - 1))
+    code = ("import json, sys; from tf_repos_tpu_torch.data import synthetic as S; "
+            "kw = json.loads(sys.argv[4]); "
+            "kw.update(mh_avg_lens=S.PUBLISHED_MH_AVG_LENS) if sys.argv[1] == 'aliccp' else None; "
+            "getattr(S, 'write_synthetic_' + sys.argv[1])(sys.argv[2], int(sys.argv[3]), **kw)")
+    sizes = [rows // parts + (i < rows % parts) for i in range(parts)]
+    names = [f"{path}.part{i}" for i in range(parts)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, kind, name, str(n),
+                               json.dumps(dict(kw, seed=seed + i))], cwd=HERE)
+             for i, (name, n) in enumerate(zip(names, sizes))]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(rcs == [0] * parts, f"the {kind} writers exited {rcs}")
+    with open(path, "wb") as out:
+        for name in names:
+            with open(name, "rb") as f:
+                shutil.copyfileobj(f, out, 1 << 24)
+            os.remove(name)
+
+
 def main_path(dev, work, rates):
     data = os.path.join(work, "data")
     os.makedirs(data)
     t0 = time.perf_counter()
-    write_synthetic_libsvm(os.path.join(data, "tr.libsvm"), MAIN_STEPS * B,
-                           WIDTH["feature_size"], seed=1, zipf_a=1.2)
+    write_in_parts("libsvm", os.path.join(data, "tr.libsvm"), MAIN_STEPS * B, 1,
+                   feature_size=WIDTH["feature_size"], zipf_a=1.2)
     write_synthetic_libsvm(os.path.join(data, "va.libsvm"), B, WIDTH["feature_size"],
                            seed=2, zipf_a=1.2)
     log(f"main path data: {MAIN_STEPS * B} train + {B} valid rows written in "
@@ -1467,8 +1525,8 @@ def esmm_main_path(dev, work, rates):
     os.makedirs(data)
     tr = os.path.join(data, "tr.samples.txt")
     t0 = time.perf_counter()
-    write_synthetic_aliccp(tr, ESMM_STEPS * EB, ESMM_WIDTH["feature_size"], seed=1, zipf_a=1.2,
-                           mh_avg_lens=PUBLISHED_MH_AVG_LENS)
+    write_in_parts("aliccp", tr, ESMM_STEPS * EB, 1, feature_size=ESMM_WIDTH["feature_size"],
+                   zipf_a=1.2)
     write_synthetic_aliccp(os.path.join(data, "va.samples.txt"), EB, ESMM_WIDTH["feature_size"],
                            seed=2, zipf_a=1.2, mh_avg_lens=PUBLISHED_MH_AVG_LENS)
     log(f"ESMM main path data: {ESMM_STEPS * EB} train + {EB} valid lines "
@@ -1649,8 +1707,8 @@ def field_block_main_path(dev, work, rates):
     data = os.path.join(work, "fb_data")
     os.makedirs(data)
     t0 = time.perf_counter()
-    write_synthetic_libsvm(os.path.join(data, "tr.libsvm"), FB_STEPS * B, WIDTH["feature_size"],
-                           seed=3)
+    write_in_parts("libsvm", os.path.join(data, "tr.libsvm"), FB_STEPS * B, 3,
+                   feature_size=WIDTH["feature_size"])
     write_synthetic_libsvm(os.path.join(data, "va.libsvm"), B, WIDTH["feature_size"], seed=4)
     log(f"field-blocks data: {FB_STEPS * B} train + {B} valid rows written in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3437,16 +3495,20 @@ def mesh_bare_steps(h, n, check_store=False):
     return out
 
 
-def mesh_rank(mesh, argv, n_bare, check_store):
-    """Rank program of legs (a) and (b): the harness's train task on this
-    rank (launch counters zeroed just before, read just after, every
-    rank's counts summed into a [ranks, kernels] table), then the bare
-    step timed (mesh_bare_steps)."""
+def mesh_rank(mesh, argv, n_bare, check_store, coo=False):
+    """Rank program of legs (a) and (b) of phases 6 and 7: the harness's
+    train task on this rank (launch counters zeroed just before, read
+    just after, every rank's counts summed into a [ranks, kernels]
+    table), then the bare step timed (mesh_bare_steps); under ``coo``
+    (several hosts) each batch's own and cross-host COO bucket."""
     import torch.distributed as dist
 
     for mod in (SR, CP, RS):
         mod.reset_launches()
     h = Harness(parse_config(argv), mesh)
+    widths = None
+    if coo:
+        widths = h._uids_union = CooWidths(h._uids_union)
     t0 = time.perf_counter()
     res = h.train()
     sync(mesh.device)
@@ -3459,7 +3521,8 @@ def mesh_rank(mesh, argv, n_bare, check_store):
         mod.reset_launches()
     peak = torch.cuda.max_memory_allocated(mesh.device) if mesh.device.type == "cuda" else 0
     return {"res": res, "wall": wall, "counts": counts.tolist(), "bare": bare,
-            "backend": mesh.backend, "peak": peak}
+            "backend": mesh.backend, "peak": peak, "host": mesh.host,
+            "coo": None if widths is None else (widths.own, widths.agreed)}
 
 
 def nccl_rank(mesh, width, n_steps):
@@ -3781,6 +3844,636 @@ def mesh_phase(dev, work, card):
 
 
 
+# ------------------------------------------------------------------ phase 7
+MH_HOSTS = 2
+MH_STEPS = 16  # leg (a): steps on each host's file
+MH_ESMM_STEPS = 8  # leg (b)
+MH_SLIM_STEPS = 5  # leg (d)
+MH_INFER_ROWS = (3 * B, 5000)  # leg (c): te files of unequal length (3 batches and 1)
+# leg (e): the Criteo surrogate (data/criteo_surrogate.py) through the
+# preprocessor (features/criteo.py) into DeepFM's dense step on
+# --field_blocks=auto:<feature_map>
+SURR_TRAIN, SURR_TEST = 300_000, 50_000
+SURR_WIDTH = dict(FB_WIDTH, batch_size=2048, learning_rate=0.001)
+SURR_AUC_BAR = 0.70  # eval AUC after one epoch (PERF.md, written before the first run)
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def split_lines(src, parts):
+    """Write each (path, first line, end line) slice of the text file src."""
+    with open(src) as f:
+        lines = f.readlines()
+    for path, lo, hi in parts:
+        check(hi <= len(lines), f"{src} has {len(lines)} lines, {path} needs {hi}")
+        with open(path, "w") as f:
+            f.writelines(lines[lo:hi])
+
+
+def host_entry(spec: str, task: int) -> None:
+    """One host of a phase-7 leg, a process of its own: its ranks of the
+    mesh over the hosts (parallel/launch.run_on_hosts), every rank on the
+    one card; the first local rank's result pickled beside ``spec``."""
+    import pickle
+
+    from tf_repos_tpu_torch.parallel.launch import run_on_hosts
+
+    with open(spec, "rb") as f:
+        fn, args, data, model, hosts, dev = pickle.load(f)
+    out = run_on_hosts(globals()[fn], args, data=data, model=model,
+                       devices=[dev] * (data * model // len(hosts)), hosts=hosts,
+                       task_index=task, timeout=900)
+    with open(f"{spec}.{task}", "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_two_hosts(work, tag, fn, args, data, model, dev):
+    """Two host processes on 127.0.0.1 (free ports; the first the
+    coordinator), each running ``fn(mesh, *args)`` on its ranks: (stdout,
+    result) of each host. A host that fails or outlives 900 s fails the
+    leg, and both are killed with their ranks."""
+    import pickle
+
+    spec = os.path.join(work, f"hosts_{tag}.pkl")
+    hosts = [f"127.0.0.1:{free_port()}" for _ in range(MH_HOSTS)]
+    with open(spec, "wb") as f:
+        pickle.dump((fn.__name__, args, data, model, hosts, str(dev)), f)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.host_entry({spec!r}, {i})"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True) for i in range(MH_HOSTS)]
+    outs = []
+    try:
+        for i, p in enumerate(procs):
+            out, err = p.communicate(timeout=900)
+            check(p.returncode == 0, f"{tag}: host {i} exited {p.returncode}: {err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:  # a host and its ranks
+            stop_group(p)
+    results = []
+    for i in range(MH_HOSTS):
+        with open(f"{spec}.{i}", "rb") as f:
+            results.append(pickle.load(f))
+    return outs, results
+
+
+class CooWidths:
+    """Wraps a harness's GlobalUidsUnion: the COO bucket of each batch on
+    this host before the union and the cross-host one after."""
+
+    def __init__(self, union):
+        self.union, self.own, self.agreed = union, [], []
+
+    def __call__(self, batch):
+        self.own.append(int(batch[MHC_IDX].shape[-1]))
+        out = self.union(batch)
+        self.agreed.append(int(out[MHC_IDX].shape[-1]))
+        return out
+
+
+def multihost_task(mesh, argv):
+    """A CLI task on this rank (eval, infer): the harness's own entry."""
+    from tf_repos_tpu_torch.train.harness import run_task_on_mesh
+
+    return run_task_on_mesh(mesh, parse_config(argv))
+
+
+def single_device_reference(dev, argv, steps, chain):
+    """The single-device step (the same harness flags, one process, from the
+    same seeded init) on the legs' global batches: each host's batches as
+    its ranks read them (its file shard, shuffled by --seed), host 0's
+    rows then host 1's, through ``chain`` (the host map). (losses, the
+    final row store)."""
+    from tf_repos_tpu_torch.data.pipeline import shard_files_for_host
+    from tf_repos_tpu_torch.models import input_format
+    from tf_repos_tpu_torch.parallel.step import fold_seed
+
+    h = Harness(parse_config([*argv, f"--device={dev.type}", "--mesh_data=1", "--mesh_model=1"]))
+    files = h._glob_split("tr", shuffle=True)
+    fmt = input_format(h.model)
+    its = [iter(h._build_reader(shard_files_for_host(files, i, MH_HOSTS), fmt, shuffle=True,
+                                epochs=1)) for i in range(MH_HOSTS)]
+    ts = h.init_train_state()
+    state = {k: ts[k] for k in ("params", "opt_state", "mstate")}
+    step = h._get_train_step()
+    gen = torch.Generator(device=dev).manual_seed(fold_seed(h.cfg.seed + 1, 0))
+    sr = torch.Generator(device=dev).manual_seed(h.cfg.seed + 2)
+    losses = []
+    for _ in range(steps):
+        parts = [next(it) for it in its]
+        g = chain({k: np.concatenate([p[k] for p in parts]) for k in parts[0]})
+        state, loss = step(state, to_device(g, dev), gen, sr)
+        losses.append(float(loss))
+    (t,) = h.model.sparse_slots()
+    store = state["opt_state"]["sparse"][t]["wmv"]
+    return losses, store[: h.model.sparse_slots()[t].vocab].cpu()
+
+
+def checkpoint_store(model_dir, table):
+    from tf_repos_tpu_torch.train.checkpoint import CheckpointManager
+
+    st = CheckpointManager(os.path.join(model_dir, "smoke")).restore("cpu")
+    store = st["opt_state"]["sparse"][table]["wmv"]
+    return store[:-1]
+
+
+def held_store(label, got, want, k, lr, steps, mv_bar=1e-4):
+    """The fused w|m|v store of a mesh run against the single-device
+    run's. m and v are held at ``mv_bar`` (the gradients agree to
+    round-off; None: printed only). w is held at 1e-4 but for the
+    elements Adam moved on a gradient that cancels to ~0, whose
+    round-off (another summation order over "data", K2's atomics)
+    decides the update's sign: each such element differs by at most
+    ``steps`` updates of lr, and they are counted and printed. Returns
+    the max abs difference of w."""
+    d = (got[:, : 3 * k] - want[:, : 3 * k]).abs()
+    dw, dm, dv = (float(d[:, i * k:(i + 1) * k].max()) for i in range(3))
+    over = int((d[:, :k] > 1e-4).sum())
+    log(f"{label}: store max abs difference w {dw:.2e} ({over} of {d[:, :k].numel()} elements "
+        f"over 1e-4), m {dm:.2e}, v {dv:.2e}")
+    check((mv_bar is None or (dm <= mv_bar and dv <= mv_bar)) and dw <= steps * lr * 1.01,
+          f"{label}: the store differs from the single-device run's: w {dw}, m {dm}, v {dv}")
+    return dw
+
+
+def consensus_point(dev):
+    """K1/K2 at a two-host 2x2 rank's shapes (its host's 16,384 rows over
+    the global working set of both hosts' batches: the union of two
+    DeepFM-point batches), and K3/K4 at a two-host ESMM rank's (one host
+    batch's COO re-padded to the cross-host bucket, over the global
+    uids) with K7 writing those uids into the whole [V+1, 128] store
+    (model axis 1). The union runs as on two hosts: two threads, one
+    GlobalUidsUnion each, meeting in a thread all-gather."""
+    import threading
+
+    from tf_repos_tpu_torch.data.sparse_batch import GlobalUidsUnion
+
+    def two_host_union(slots, hosts):
+        barrier = threading.Barrier(2)
+        box = [None, None]
+        out = [None, None]
+
+        def run(i):
+            def gather(x):
+                box[i] = np.array(x)
+                barrier.wait()
+                got = np.stack([box[0], box[1]])
+                barrier.wait()
+                return got
+
+            out[i] = GlobalUidsUnion(slots, allgather=gather)(hosts[i])
+
+        ts = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        return out
+
+    res = {"t": {}, "bound": {}, "bound_by": {}, "err": {}}
+    model = create_model(Config(**WIDTH))
+    mapper = SparseBatchMapper(model.sparse_slots())
+    hosts = [mapper(b) for b in zipf_batches(2, seed=31)]
+    u0, _ = two_host_union(model.sparse_slots(), hosts)
+    s = int(u0["__uids_fm_wv"].shape[0])
+    idx = torch.from_numpy(np.ascontiguousarray(u0["feat_ids"][:, STATIC:]).reshape(-1)).to(dev)
+    k = 1 + WIDTH["embedding_size"]
+    gen = torch.Generator(device=dev).manual_seed(32)
+    su = torch.randn((s, 3 * k), generator=gen, device=dev)
+    k1_k2_point(res, "two-host 2x2 rank", f"DeepFM's lookup on a rank's {B} rows over both "
+                f"hosts' uids", su, k, idx, s, gen)
+
+    emodel = create_model(Config(**ESMM_WIDTH))
+    packer = MhCooPacker(emodel.mh_coo_groups(), combine=True)
+    emapper = SparseBatchMapper(emodel.sparse_slots())
+    ehosts = [emapper(packer(dict(b))) for b in esmm_batches(2, seed=33)]
+    own = [int(b[MHC_IDX].shape[-1]) for b in ehosts]
+    e0, _ = two_host_union(emodel.sparse_slots(), ehosts)
+    idx3, dest3, w3 = (torch.from_numpy(np.ascontiguousarray(e0[key][0])).to(dev)
+                       for key in (MHC_IDX, MHC_DEST, MHC_W))
+    m, es, ek = idx3.shape[0], int(e0["__uids_emb"].shape[0]), ESMM_WIDTH["embedding_size"]
+    g3 = EB * len(emodel.mh_coo_groups())
+    store = torch.randn((es, 3 * ek), generator=gen, device=dev)
+    table, dp = store[:, :ek], torch.randn((g3, ek), generator=gen, device=dev)
+    err3 = held("coo_pool_rows (two-host rank)", CP.coo_pool_rows(table, idx3, dest3, w3, g3),
+                CP.coo_pool_rows_plain(table, idx3, dest3, w3, g3),
+                CP.coo_pool_rows_plain(table.abs(), idx3, dest3, w3.abs(), g3))
+    err4 = held("coo_accumulate_rows (two-host rank)",
+                CP.coo_accumulate_rows(dp, idx3, dest3, w3, es),
+                CP.coo_accumulate_rows_plain(dp, idx3, dest3, w3, es),
+                CP.coo_accumulate_rows_plain(dp.abs(), idx3, dest3, w3.abs(), es))
+    tc, idx64 = table.contiguous(), idx3.long()
+    cnt = torch.from_numpy(e0[MHC_CNT].reshape(-1).astype(np.int64))
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(cnt, 0)[:-1]]).to(dev)
+    n_live = int(cnt.sum())
+    zeros = torch.zeros((es, ek), device=dev)
+    e3, e4 = "coo_pool_rows (two-host rank)", "coo_accumulate_rows (two-host rank)"
+    res["t"][e3] = (cuda_ms(lambda: CP.coo_pool_rows(table, idx3, dest3, w3, g3)),
+                    cuda_ms(lambda: CP.coo_pool_rows_plain(table, idx3, dest3, w3, g3)),
+                    cuda_ms(lambda: torch.nn.functional.embedding_bag(
+                        idx64[:n_live], tc, offsets, mode="sum", per_sample_weights=w3[:n_live])))
+    res["t"][e4] = (cuda_ms(lambda: CP.coo_accumulate_rows(dp, idx3, dest3, w3, es)),
+                    cuda_ms(lambda: CP.coo_accumulate_rows_plain(dp, idx3, dest3, w3, es)),
+                    cuda_ms(lambda: torch.index_add(zeros, 0, idx3,
+                                                    dp.index_select(0, dest3) * w3[:, None])))
+    nbytes = m * 12 + es * ek * 4 + g3 * ek * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * m * ek / F32_FLOPS * 1e3
+    for e, err in ((e3, err3), (e4, err4)):
+        res["bound"][e] = max(t_bytes, t_ops)
+        res["bound_by"][e] = "bytes" if t_bytes >= t_ops else "operations"
+        res["err"][e] = err
+        ms, plain, lib = res["t"][e]
+        log(f"kernel {e}: host 0's {EB} rows, COO bucket {m} (the hosts' own {own}), "
+            f"{n_live} live slots, global S={es}: max_abs_err {err:.3e}  {ms:.4f} ms  plain "
+            f"{plain:.4f} ms  library {lib:.4f} ms  bound {res['bound'][e]:.4f} ms "
+            f"({res['bound_by'][e]}; {res['bound'][e] / ms:.2f} of it)")
+    del store, table, dp, zeros
+    vocab = ESMM_WIDTH["feature_size"]
+    u = torch.from_numpy(e0["__uids_emb"]).to(dev)
+    live = int((e0["__uids_emb"] < vocab).sum())
+    big = torch.randn((vocab + 1, 128), generator=gen, device=dev)
+    big[-1] = 0.0
+    k3 = 3 * ek
+    rows = torch.randn((es, k3), generator=gen, device=dev)
+    view = big[:, :k3]
+    want = RS.dma_row_scatter_plain(view.clone(), u, rows, vocab)
+    RS.dma_row_scatter(view, u, rows, n_valid=vocab)
+    sync(dev)
+    check(torch.equal(view, want), "dma_row_scatter (two-host rank) differs from the masked "
+                                   "assignment")
+    del want
+    u_live, r_live = u[:live].long(), rows[:live].contiguous()
+    e7 = "dma_row_scatter (two-host rank)"
+    res["t"][e7] = (cuda_ms(lambda: RS.dma_row_scatter(view, u, rows, n_valid=vocab)),
+                    cuda_ms(lambda: RS.dma_row_scatter_plain(view, u, rows, vocab), iters=10),
+                    cuda_ms(lambda: view.index_copy_(0, u_live, r_live)))
+    nbytes = 2 * live * k3 * 4 + es * 4
+    res["bound"][e7], res["bound_by"][e7], res["err"][e7] = nbytes / HBM_BYTES_PER_S * 1e3, "bytes", 0.0
+    ms, plain, lib = res["t"][e7]
+    log(f"kernel {e7}: store [{vocab + 1}, 128] f32 ({k3} live lanes), the global S={es} "
+        f"({live} live): bit-exact  {ms:.4f} ms  plain {plain:.4f} ms  library (index_copy_) "
+        f"{lib:.4f} ms  bound {res['bound'][e7]:.4f} ms ({res['bound'][e7] / ms:.2f} of it)")
+    del big, rows, r_live
+    torch.cuda.empty_cache()
+    return res
+
+
+def surrogate_data(work, train_lines, test_lines) -> None:
+    """Leg (e)'s host side, a process of its own (surrogate_process): the
+    port's surrogate writes SURR_TRAIN train lines (worker processes over
+    the host's cores, while this process solves the same label
+    calibration for the test lines and the Bayes ceiling) and SURR_TEST
+    test lines; the port's preprocessor turns them into libsvm and a
+    feature_map. What it measured goes to <work>/surrogate.json."""
+    import threading
+
+    from tf_repos_tpu_torch.data import criteo_surrogate as CSG
+    from tf_repos_tpu_torch.features import criteo as FC
+
+    raw, data = os.path.join(work, "surrogate_raw"), os.path.join(work, "surrogate")
+    os.makedirs(raw)
+    cores = max(1, (os.cpu_count() or 2) - 1)
+    t0 = time.perf_counter()
+    CSG.configure(train_lines)
+    shard_stats = {}
+    writer = threading.Thread(target=lambda: shard_stats.update(CSG.generate_raw_sharded(
+        os.path.join(raw, "train.txt"), train_lines, 0, cores, total_lines=train_lines)))
+    writer.start()
+    CSG.calibration()
+    CSG.generate_raw(os.path.join(raw, "test.txt"), test_lines, 1)
+    bayes = CSG.bayes_ceiling()
+    writer.join()
+    t_gen = time.perf_counter() - t0
+    cutoff = CSG.scaled_cutoff(train_lines)
+    t0 = time.perf_counter()
+    info = FC.preprocess(raw, data, cutoff, workers=cores)
+    with open(os.path.join(work, "surrogate.json"), "w") as f:
+        json.dump(dict(stats=shard_stats, bayes=bayes, t_gen=t_gen, cutoff=cutoff, info=info,
+                       t_pre=time.perf_counter() - t0, cores=cores), f)
+
+
+def surrogate_process(work):
+    """Start surrogate_data in a process group of its own (it runs beside
+    legs (a)-(d), whose hosts wait on the card and on each other)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.surrogate_data({work!r}, "
+                               f"{SURR_TRAIN}, {SURR_TEST})"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+
+
+def stop_group(proc) -> None:
+    """Kill a process started in a session of its own, with its children."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def surrogate_leg(dev, work, card, res, proc):
+    """Leg (e): the surrogate's files from surrogate_process; DeepFM's
+    dense step trains one epoch on the card with
+    --field_blocks=auto:<feature_map> (K8 once a step); its eval AUC (the
+    harness's 200 thresholds) and exact_auc beside the surrogate's Bayes
+    ceiling; K8 timed at the surrogate's blocks."""
+    from tf_repos_tpu_torch.features.criteo import field_blocks_from_feature_map
+    from tf_repos_tpu_torch.ops.metrics import exact_auc
+
+    try:
+        _, err = proc.communicate(timeout=900)
+    finally:
+        stop_group(proc)
+    check(proc.returncode == 0, f"leg (e): the surrogate's process exited {proc.returncode}: "
+                                f"{err[-3000:]}")
+    with open(os.path.join(work, "surrogate.json")) as f:
+        sd = json.load(f)
+    data, info, bayes = os.path.join(work, "surrogate"), sd["info"], sd["bayes"]
+    check(sd["stats"].get("lines") == SURR_TRAIN, f"surrogate wrote {sd['stats']}")
+    fmap = os.path.join(data, "feature_map")
+    log(f"leg (e) surrogate: {SURR_TRAIN} train lines (ctr {sd['stats']['ctr']:.4f}, "
+        f"{sd['cores']} worker processes) and {SURR_TEST} test lines in {sd['t_gen']:.1f} s; Bayes "
+        f"ceiling {bayes:.4f}; preprocess (cutoff {sd['cutoff']}, {sd['cores']} workers) in "
+        f"{sd['t_pre']:.1f} s: feature_size {info['feature_size']} (beside legs (a)-(d))")
+    width = dict(SURR_WIDTH, feature_size=info["feature_size"], field_blocks=f"auto:{fmap}")
+    argv = [f"--{k}={v}" for k, v in width.items()] + [
+        "--task_type=train", "--num_epochs=1", "--log_steps=50", f"--data_dir={data}",
+        f"--model_dir={work}/surrogate_model/", "--dt_dir=smoke", "--eval_throttle_secs=0",
+        f"--device={dev.type}", "--seed=2018"]
+    FB.reset_launches()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FB.field_block_scatter.launches
+    check(launches == out["step"] > 0, f"leg (e): field_block_scatter launched {launches} times "
+                                       f"in {out['step']} steps")
+    # exact_auc over the va predictions of the trained checkpoint
+    h = Harness(parse_config([a for a in argv if a != "--task_type=train"]))
+    ts = h._restore()
+    predict = L.build_predict_step(h.model)
+    preds, labels, masks = [], [], []
+    for b in h._dataset("va", shuffle=False, epochs=1):
+        db = to_device(b, dev)
+        preds.append(predict(ts["params"], ts["mstate"], db)["prob"])
+        labels.append(db["label"])
+        masks.append(db["mask"])
+    ex = float(exact_auc(torch.cat(labels), torch.cat(preds), torch.cat(masks)))
+    log(f"leg (e): DeepFM dense --field_blocks=auto:<feature_map> (B={width['batch_size']}) one "
+        f"epoch, {out['step']} steps in {wall:.1f} s on {card}: eval AUC {out['auc']:.4f} (200 "
+        f"thresholds), exact_auc {ex:.4f}, Bayes ceiling {bayes:.4f} ({out['auc'] / bayes:.3f} of "
+        f"it), loss {out['loss']:.4f}; field_block_scatter launches {launches}")
+    check(out["auc"] >= SURR_AUC_BAR and ex >= SURR_AUC_BAR and ex <= bayes + 0.01,
+          f"leg (e): eval AUC {out['auc']}, exact {ex} vs bar {SURR_AUC_BAR}, ceiling {bayes}")
+    res["e_launches"] = launches
+    # K8 at the surrogate's blocks: one training batch, a random cotangent
+    offsets, sizes = field_blocks_from_feature_map(fmap)
+    vocab, w = info["feature_size"], 1 + WIDTH["embedding_size"]
+    ids = torch.from_numpy(next(iter(h._build_reader(
+        [os.path.join(data, "tr.libsvm")], "libsvm", shuffle=False, epochs=1)))["feat_ids"]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    g = torch.randn((ids.shape[0], len(offsets), w), generator=gen, device=dev)
+    args = (vocab, offsets, sizes, True)
+    e8 = "field_block_scatter (surrogate blocks)"
+    err = held(e8, FB.field_block_scatter(ids, g, *args), FB.field_block_scatter_plain(ids, g, *args),
+               FB.field_block_scatter_plain(ids, g.abs(), *args))
+    i64 = ids.long()
+    off, siz = torch.tensor(offsets, device=dev), torch.tensor(sizes, device=dev)
+    keep = (i64 >= off) & (i64 < off + siz)
+    lib_ids = torch.where(keep, i64, 0).reshape(-1)
+    lib_g = torch.where(keep[..., None], g.to(torch.bfloat16).float(), 0.0).reshape(-1, w)
+    t = (cuda_ms(lambda: FB.field_block_scatter(ids, g, *args)),
+         cuda_ms(lambda: FB.field_block_scatter_plain(ids, g, *args)),
+         cuda_ms(lambda: torch.zeros((vocab, w), device=dev).index_add_(0, lib_ids, lib_g)))
+    nbytes = ids.numel() * 4 + g.numel() * 4 + vocab * w * 4
+    bound = max(nbytes / HBM_BYTES_PER_S, g.numel() / F32_FLOPS) * 1e3
+    log(f"kernel {e8} (B={ids.shape[0]}, 39 fields, blocks of sizes {min(sizes)}..{max(sizes)}, "
+        f"vocab {vocab}; bf16 mode): max_abs_err {err:.3e}  {t[0]:.4f} ms  plain {t[1]:.4f} ms  "
+        f"library (index_add_) {t[2]:.4f} ms  bound {bound:.4f} ms ({bound / t[0]:.2f} of it)")
+    res["kernels"]["t"][e8], res["kernels"]["bound"][e8] = t, bound
+    res["kernels"]["bound_by"][e8], res["kernels"]["err"][e8] = "bytes", err
+
+
+def multihost_phase(dev, work, card):
+    """Phase 7, several hosts (--dist_mode=2): two host processes on
+    127.0.0.1 whose ranks share the one card over gloo (run_two_hosts).
+    (a) DeepFM at the bench width with the multihost preset's flags, 2x2
+    over two hosts (two ranks each), MH_STEPS steps on each host's file:
+    the hosts' loss lines equal, the logged losses held to the
+    single-device step on the same global batches (PR 14's bar) and the
+    store within 1e-4, K1 and K2 once a step on every rank; (b) ESMM
+    --mh_coo --dma_scatter at the published point, 2x1 over two hosts,
+    MH_ESMM_STEPS steps, held likewise, K3, K4 and K7 once a step on
+    each rank, each host's own COO bucket beside the cross-host one; (c)
+    (a)'s checkpoint inferred on two hosts over te files of unequal
+    length (the template path), held to the one-process pred.txt; (d)
+    --slim_transfer on a one-host 2x2 mesh, MH_SLIM_STEPS steps, held to
+    the unwired mesh run; (e) the surrogate (surrogate_leg). Then K1/K2,
+    K3/K4 and K7 at a two-host rank's shapes (consensus_point)."""
+    surrogate = surrogate_process(work)
+    try:
+        return multihost_legs(dev, work, card, surrogate)
+    finally:
+        stop_group(surrogate)
+
+
+def multihost_legs(dev, work, card, surrogate):
+    """multihost_phase's legs, (e) on the files of ``surrogate``."""
+    from tf_repos_tpu_torch.parallel.launch import run_on_mesh
+
+    t_all = time.perf_counter()
+    res = {}
+    # (a)
+    data = os.path.join(work, "mh_data")
+    os.makedirs(data)
+    n = MH_STEPS * B
+    split_lines(os.path.join(work, "data", "tr.libsvm"),
+                [(os.path.join(data, "tr.part0.libsvm"), 0, n),
+                 (os.path.join(data, "tr.part1.libsvm"), MAIN_STEPS * B - n, MAIN_STEPS * B)])
+    shutil.copy(os.path.join(work, "data", "va.libsvm"), os.path.join(data, "va.libsvm"))
+    base = [f"--{k}={v}" for k, v in WIDTH.items()] + [
+        "--preset=multihost", "--num_epochs=1", "--log_steps=1", f"--data_dir={data}",
+        "--dt_dir=smoke", "--eval_throttle_secs=0", "--seed=2018"]
+    mh = [*base, "--task_type=train", f"--model_dir={work}/mh_a/", "--mesh_data=2",
+          "--mesh_model=2", f"--device={dev.type}"]
+    outs, outa = run_two_hosts(work, "a", mesh_rank, (mh, 5, False), 2, 2, dev)
+    steps = outa[0]["res"]["step"]
+    lines = [[ln.split(" (")[0] for ln in o.splitlines() if ln.startswith("INFO: step = ")]
+             for o in outs]
+    check(steps == MH_STEPS and lines[0] == lines[1] and len(lines[0]) >= 2,
+          f"leg (a): {steps} steps; host loss lines {lines}")
+    want, want_store = single_device_reference(dev, base, MH_STEPS, SparseBatchMapper(
+        create_model(Config(**WIDTH)).sparse_slots()))
+    got = train_losses(f"{work}/mh_a")
+    rel = held_losses("leg (a) two-host 2x2 DeepFM", got, [(s, want[s - 1]) for s, _ in got])
+    dstore = held_store("leg (a)", checkpoint_store(f"{work}/mh_a", "fm_wv"), want_store,
+                        1 + WIDTH["embedding_size"], WIDTH["learning_rate"], MH_STEPS)
+    res["a"] = dict(outa[0], launches=mesh_launches("leg (a)", outa[0], steps,
+                                                    ("expand_rows", "accumulate_rows")), steps=steps)
+    res["a"]["share"] = mesh_rank_line(
+        f"leg (a) DeepFM 2x2 over 2 hosts, B={B} a host", outa[0], steps, card)
+    log(f"leg (a): host 0 {outs[0].count('INFO: step')} loss lines = host 1's; logged losses "
+        f"{[round(v, 6) for _, v in got]} within {rel:.2e} relative of the single-device step on "
+        f"the global batches ({MH_HOSTS * B} rows); store within {dstore:.2e}; eval loss "
+        f"{outa[0]['res']['loss']:.6f} auc {outa[0]['res']['auc']:.6f} on host 0, "
+        f"{outa[1]['res']['loss']:.6f} / {outa[1]['res']['auc']:.6f} on host 1")
+
+    # (b)
+    edata = os.path.join(work, "mh_esmm")
+    os.makedirs(edata)
+    n = MH_ESMM_STEPS * EB
+    split_lines(os.path.join(work, "esmm_data", "tr.samples.txt"),
+                [(os.path.join(edata, "tr.part0"), 0, n),
+                 (os.path.join(edata, "tr.part1"), ESMM_STEPS * EB - n, ESMM_STEPS * EB)])
+    shutil.copy(os.path.join(work, "esmm_data", "va.samples.txt"),
+                os.path.join(edata, "va.samples.txt"))
+    ebase = [f"--{k}={v}" for k, v in ESMM_WIDTH.items()] + [
+        "--num_epochs=1", "--log_steps=1", f"--data_dir={edata}", "--dt_dir=smoke",
+        "--eval_throttle_secs=0", "--seed=2018"]
+    emh = [*ebase, "--task_type=train", f"--model_dir={work}/mh_b/", "--mesh_data=2",
+           "--mesh_model=1", f"--device={dev.type}"]
+    _, outb = run_two_hosts(work, "b", mesh_rank, (emh, 3, False, True), 2, 1, dev)
+    steps = outb[0]["res"]["step"]
+    check(steps == MH_ESMM_STEPS, f"leg (b) ran {steps} steps")
+    emodel = create_model(Config(**ESMM_WIDTH))
+    want, want_store = single_device_reference(dev, ebase, MH_ESMM_STEPS, esmm_chain(emodel))
+    got = train_losses(f"{work}/mh_b")
+    rel = held_losses("leg (b) two-host ESMM", got, [(s, want[s - 1]) for s, _ in got])
+    dstore = held_store("leg (b)", checkpoint_store(f"{work}/mh_b", "emb"), want_store,
+                        ESMM_WIDTH["embedding_size"], ESMM_WIDTH["learning_rate"], MH_ESMM_STEPS,
+                        mv_bar=None)
+    res["b"] = dict(outb[0], launches=mesh_launches(
+        "leg (b)", outb[0], steps, ("accumulate_rows", "coo_accumulate_rows", "dma_row_scatter"),
+        ("expand_rows", "coo_pool_rows")), steps=steps)
+    pool = [row[2] for row in outb[0]["counts"]]
+    check(all(c >= steps for c in pool), f"leg (b): coo_pool_rows launched {pool} times on the "
+                                         f"ranks in {steps} steps, expected at least one a step")
+    res["b"]["share"] = mesh_rank_line(f"leg (b) ESMM 2x1 over 2 hosts, B={EB} a host", outb[0],
+                                       steps, card)
+    for o in outb:
+        own, agreed = o["coo"]
+        log(f"leg (b) host {o['host']}: its own COO bucket per step {own[:steps]}, the cross-host "
+            f"one {agreed[:steps]}")
+    check(outb[0]["coo"][1] == outb[1]["coo"][1], "leg (b): the hosts' COO buckets disagree")
+    log(f"leg (b): logged losses within {rel:.2e} relative of the single-device step on the "
+        f"global batches ({MH_HOSTS * EB} rows); store (w) within {dstore:.2e}")
+
+    # (c) infer of (a)'s checkpoint over two te files of unequal length
+    idata = os.path.join(work, "mh_infer")
+    os.makedirs(idata)
+    split_lines(os.path.join(work, "data", "tr.libsvm"),
+                [(os.path.join(idata, "te.part0.libsvm"), 0, MH_INFER_ROWS[0]),
+                 (os.path.join(idata, "te.part1.libsvm"), MH_INFER_ROWS[0],
+                  sum(MH_INFER_ROWS))])
+    iargv = [f"--{k}={v}" for k, v in WIDTH.items()] + [
+        "--task_type=infer", f"--data_dir={idata}", f"--model_dir={work}/mh_a/", "--dt_dir=smoke",
+        "--compute_dtype=float32", f"--device={dev.type}"]
+    t0 = time.perf_counter()
+    run_two_hosts(work, "c", multihost_task, ([*iargv, "--mesh_data=2", "--mesh_model=2"],), 2, 2,
+                  dev)
+    t_two = time.perf_counter() - t0
+    two = np.loadtxt(os.path.join(idata, "pred.txt"))
+    SR.reset_launches()
+    one = np.loadtxt(cli.main([*iargv, "--mesh_data=1", "--mesh_model=1"]))
+    check(two.shape == one.shape == (sum(MH_INFER_ROWS),), f"leg (c): {two.shape} vs {one.shape}")
+    d = np.abs(two - one)
+    check(bool((d <= 1e-5 * np.abs(one) + 1e-6).all()),
+          f"leg (c): two-host pred.txt differs from the one-process one by {d.max()}")
+    log(f"leg (c): (a)'s checkpoint inferred on two hosts (te files of {MH_INFER_ROWS} lines: "
+        f"host 1 feeds the template batch for 2 of the 3 steps) in {t_two:.1f} s: "
+        f"{two.shape[0]} lines, max abs difference {d.max():.2e} from the one-process pred.txt "
+        f"(f32 towers; K1 {SR.expand_rows.launches} launches in the one-process infer)")
+
+    # (d) the slim wire on a one-host 2x2 mesh
+    sdata = os.path.join(work, "mh_slim")
+    os.makedirs(sdata)
+    split_lines(os.path.join(work, "data", "tr.libsvm"),
+                [(os.path.join(sdata, "tr.libsvm"), 0, MH_SLIM_STEPS * B)])
+    shutil.copy(os.path.join(work, "data", "va.libsvm"), os.path.join(sdata, "va.libsvm"))
+    sbase = [f"--{k}={v}" for k, v in WIDTH.items()] + [
+        "--task_type=train", "--num_epochs=1", "--log_steps=1", f"--data_dir={sdata}",
+        "--dt_dir=smoke", "--eval_throttle_secs=0", "--seed=2018", "--mesh_data=2",
+        "--mesh_model=2", f"--device={dev.type}"]
+    runs = {}
+    for slim in ("false", "true"):
+        argv = [*sbase, f"--model_dir={work}/mh_d_{slim}/", f"--slim_transfer={slim}"]
+        runs[slim] = run_on_mesh(multihost_task, (argv,), data=2, model=2, devices=[dev] * 4)
+    check(runs["true"]["step"] == runs["false"]["step"] == MH_SLIM_STEPS,
+          f"leg (d): {runs}")
+    rel = held_losses("leg (d) slim 2x2", train_losses(f"{work}/mh_d_true"),
+                      train_losses(f"{work}/mh_d_false"))
+    dstore = held_store("leg (d)", checkpoint_store(f"{work}/mh_d_true", "fm_wv"),
+                        checkpoint_store(f"{work}/mh_d_false", "fm_wv"),
+                        1 + WIDTH["embedding_size"], WIDTH["learning_rate"], MH_SLIM_STEPS)
+    log(f"leg (d): --slim_transfer on a one-host 2x2 mesh, {MH_SLIM_STEPS} steps: losses within "
+        f"{rel:.2e} relative of the unwired mesh run's, store within {dstore:.2e}; eval "
+        f"{runs['true']['loss']:.6f} / {runs['false']['loss']:.6f}")
+    res["kernels"] = consensus_point(dev)
+    surrogate_leg(dev, work, card, res, surrogate)
+    log(f"multihost phase: {time.perf_counter() - t_all:.1f} s")
+    return res
+
+
+def multihost_rows(mh):
+    """The kernel report's phase-7 rows: K1/K2 at a two-host 2x2 rank, K3,
+    K4 and K7 at a two-host ESMM rank (the COO consensus), K8 on the
+    surrogate's blocks, each with the launches of one rank (every rank
+    alike) of its leg."""
+    counts = {"expand_rows (two-host 2x2 rank)": mh["a"]["launches"]["expand_rows"],
+              "accumulate_rows (two-host 2x2 rank)": mh["a"]["launches"]["accumulate_rows"],
+              "coo_pool_rows (two-host rank)": mh["b"]["launches"]["coo_pool_rows"],
+              "coo_accumulate_rows (two-host rank)": mh["b"]["launches"]["coo_accumulate_rows"],
+              "dma_row_scatter (two-host rank)": mh["b"]["launches"]["dma_row_scatter"],
+              "field_block_scatter (surrogate blocks)": mh["e_launches"]}
+    src = {"expand_rows (two-host 2x2 rank)":
+           ("sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164"),
+           "accumulate_rows (two-host 2x2 rank)":
+           ("sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:208"),
+           "coo_pool_rows (two-host rank)": ("coo_pool.cu", "tf_repos_tpu/ops/pallas_sparse.py:463"),
+           "coo_accumulate_rows (two-host rank)":
+           ("coo_pool.cu", "tf_repos_tpu/ops/pallas_sparse.py:514"),
+           "dma_row_scatter (two-host rank)":
+           ("row_scatter.cu", "tf_repos_tpu/ops/pallas_sparse.py:1472"),
+           "field_block_scatter (surrogate blocks)":
+           ("field_block.cu", "tf_repos_tpu/ops/pallas_embedding.py:103")}
+    return [(name, cu, tpu, mh["kernels"], counts) for name, (cu, tpu) in src.items()]
+
+
+def multihost_only(dev, work, card) -> int:
+    """--only=multihost: phase 7 alone, on the main paths' files written
+    here as phase 4 writes them; its kernel rows, and no result line."""
+    try:
+        for d in ("data", "esmm_data"):
+            os.makedirs(os.path.join(work, d))
+        write_in_parts("libsvm", os.path.join(work, "data", "tr.libsvm"), MAIN_STEPS * B, 1,
+                       feature_size=WIDTH["feature_size"], zipf_a=1.2)
+        write_synthetic_libsvm(os.path.join(work, "data", "va.libsvm"), B, WIDTH["feature_size"],
+                               seed=2, zipf_a=1.2)
+        write_in_parts("aliccp", os.path.join(work, "esmm_data", "tr.samples.txt"),
+                       ESMM_STEPS * EB, 1, feature_size=ESMM_WIDTH["feature_size"], zipf_a=1.2)
+        write_synthetic_aliccp(os.path.join(work, "esmm_data", "va.samples.txt"), EB,
+                               ESMM_WIDTH["feature_size"], seed=2, zipf_a=1.2,
+                               mh_avg_lens=PUBLISHED_MH_AVG_LENS)
+        mh = multihost_phase(dev, work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for name, _, _, phase, counts in multihost_rows(mh):
+        ms, plain, lib = phase["t"][name]
+        log(f"row {name}: launches {counts[name]}, {ms:.4f} ms, plain {plain:.4f} ms, library "
+            f"{lib:.4f} ms, bound {phase['bound'][name]:.4f} ms ({phase['bound_by'][name]})")
+    log("phase 7 alone (--only=multihost): no result line")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke needs a GPU",
@@ -3815,6 +4508,8 @@ def main() -> int:
     work = os.path.join(HERE, "_smoke_tmp")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    if "--only=multihost" in args:
+        return multihost_only(dev, work, card)
     try:
         kp = kernel_phase(dev)
         ekp = esmm_kernel_phase(dev)
@@ -3834,6 +4529,7 @@ def main() -> int:
         dlaunches = din_main_path(dev, work, rates)
         flaunches = field_block_main_path(dev, work, rates)
         mesh = mesh_phase(dev, work, card)
+        multihost = multihost_phase(dev, work, card)
         presets = presets_path(dev, work)
         serve_kp, serve_launches = serving_phase(dev, work)
         bare = bare_steps(dev, profile)
@@ -3917,6 +4613,7 @@ def main() -> int:
         ("dma_row_scatter (1x2 mesh rank)", "row_scatter.cu",
          "tf_repos_tpu/ops/pallas_sparse.py:1472", mkp, mesh_counts),
     ]
+    kernels += multihost_rows(multihost)
     report = []
     for name, src, replaces, phase, counts in kernels:
         ms, plain, lib = phase["t"][name]

@@ -73,23 +73,23 @@ def test_main_train_then_eval(tmp_path, data_dir, extra, capsys):
 @pytest.mark.parametrize(
     "flags,error,match",
     [(["--param_dtype=bfloat16"], ValueError, "requires --sparse_table_update"),
-     (["--dist_mode=2"], NotImplementedError, "--dist_mode=2"),
+     (["--dist_mode=2"], ValueError, "--dist_mode=2 needs --worker_hosts"),
      (["--mesh_data=3"], ValueError, "not divisible by the data-mesh size 3"),
      (["--slim_transfer=true"], ValueError, "requires --static_fields>0"),
-     (["--mesh_model=2", "--slim_transfer=true", "--static_fields=13"], NotImplementedError,
-      "--slim_transfer under a mesh"),
+     (["--dist_mode=2", "--worker_hosts=127.0.0.1:1,127.0.0.1:2", "--mesh_data=3"], ValueError,
+      "the data axis 3 does not divide over 2 hosts"),
      (["--mesh_model=2", "--task_type=serve"], ValueError, "unknown task_type"),
      (["--fused_moments=true", "--sparse_table_update=true", "--fused_table=true"], ValueError,
       "--fused_table supersedes --fused_moments"),
      (["--mesh_data=2", "--device=cuda"], ValueError, "needs 2 cards")],
 )
 def test_unsupported_flags_raise(tmp_path, data_dir, flags, error, match):
-    """Flags whose path is not ported raise NotImplementedError by name
-    (--dist_mode=2, the multi-host mesh; --slim_transfer on a mesh); the
-    ones ported since raise the JAX package's ValueError where it refuses
-    them, and a mesh refuses, before any rank starts, a batch that does
-    not split over "data", an unknown task and more positions than
-    cards."""
+    """The port raises the JAX package's ValueError where it refuses a
+    flag; --dist_mode=2 refuses an empty --worker_hosts by name (the JAX
+    package's TPU-pod branch has no counterpart), and a mesh refuses,
+    before any rank starts or any host is contacted, a data axis that
+    does not divide over the hosts, a batch that does not split over
+    "data", an unknown task and more positions than cards."""
     with pytest.raises(error, match=match):
         M.main([*FLAGS, f"--data_dir={data_dir}", f"--model_dir={tmp_path}/m/",
                 "--device=cpu", *flags])

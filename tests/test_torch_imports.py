@@ -56,7 +56,9 @@ def test_modules_listed():
     assert "tf_repos_tpu_torch.serve.export" in mods
     assert "tf_repos_tpu_torch.ops.rounding" in mods
     assert "tf_repos_tpu_torch.utils.convert" in mods
-    for m in ("native", "pipeline", "cache", "tfrecord", "slim_wire"):
+    for m in ("aliccp", "criteo", "frappe", "smart", "stats"):
+        assert f"tf_repos_tpu_torch.features.{m}" in mods
+    for m in ("native", "pipeline", "cache", "tfrecord", "slim_wire", "criteo_surrogate"):
         assert f"tf_repos_tpu_torch.data.{m}" in mods
     for m in ("mesh", "launch", "distributed", "step", "sparse_step"):
         assert f"tf_repos_tpu_torch.parallel.{m}" in mods

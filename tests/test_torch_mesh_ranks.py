@@ -295,3 +295,41 @@ def rank_port_sparse(mesh, cfg_kw, batches):
     store = full["opt_state"]["sparse"][t]["wmv"]
     return {"losses": losses, "store": _np(store), "counts": counts.tolist(),
             "store_bits": store.view(torch.int16).numpy() if store.dtype == torch.bfloat16 else None}
+
+
+def rank_uids_union(mesh, cfg_kw, host_batches, bucket):
+    """Each rank one "host" (the world its host group): the port's host
+    map chain (the width bucketer under ``bucket``, the COO packer over
+    one local data shard under --mh_coo, the dedup mapper) on its own
+    batches, then GlobalUidsUnion; every rank's unioned batches."""
+    import torch.distributed as dist
+
+    from tf_repos_tpu_torch.data.ragged import MH_PAIRS
+    from tf_repos_tpu_torch.data.sparse_batch import (
+        GlobalUidsUnion,
+        MhCooPacker,
+        MhPadBucketer,
+        SparseBatchMapper,
+    )
+    from tf_repos_tpu_torch.parallel.distributed import set_host_group
+
+    set_host_group(mesh.size, mesh.rank, None)
+    cfg = Config(**cfg_kw)
+    model = create_model(cfg)
+    slots = model.sparse_slots()
+    chain = []
+    if bucket:
+        chain.append(MhPadBucketer(MH_PAIRS, "pow2"))
+    if cfg.mh_coo:
+        chain.append(MhCooPacker(model.mh_coo_groups(), floor=8, n_data=1))
+    chain.append(SparseBatchMapper(slots))
+    union = GlobalUidsUnion(slots, bucketed_pairs=MH_PAIRS if bucket else ())
+    out = []
+    for b in host_batches[mesh.rank]:
+        b = dict(b)
+        for stage in chain:
+            b = stage(b)
+        out.append(union(b))
+    every = [None] * mesh.size
+    dist.all_gather_object(every, out)
+    return every

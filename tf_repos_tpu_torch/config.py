@@ -166,8 +166,7 @@ class Config:
 
 
 # Flag sets per operating regime, identical to the JAX package's, so a
-# preset name means the same flags in both. Several of them name flags the
-# port has not implemented yet; the harness rejects those by name.
+# preset name means the same flags in both.
 PRESETS = {
     "criteo_headline": dict(
         batch_size=16384, learning_rate=2e-3, static_fields=13,

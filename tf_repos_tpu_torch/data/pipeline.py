@@ -1,21 +1,25 @@
 """Host-side input pipeline utilities (the port's own copy of the JAX
-package's data/pipeline.py, single process).
+package's data/pipeline.py).
 
 ``Prefetcher`` runs an iterator on a daemon thread a bounded number of
 items ahead; ``ordered_map`` is the ordered thread pool of the blob
 parses and of ``parallel_mapped_batches``, which applies the host map
 chain (bucketer, packer, dedup mapper) on --map_workers threads;
 ``iter_dict_batches`` assembles fixed-shape batches from dict-of-array
-chunks (the parsed or cached chunks of both readers).
+chunks (the parsed or cached chunks of both readers). Across hosts
+(--dist_mode=2), ``shard_files_for_host`` splits a split's files round
+robin and ``synchronized_iterator`` keeps every host's stream to the
+same number of batches.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterable, Iterator, List, TypeVar
+from typing import Iterable, Iterator, List, Sequence, TypeVar
 
 import numpy as np
 
@@ -148,6 +152,76 @@ def parallel_mapped_batches(it: Iterable[T], make_chain, workers: int = 2, pad_r
 
     for b in ordered_map(apply, it, workers):
         yield repad(b)
+
+
+def synchronized_iterator(it: Iterable[T], sync_every: int = 16, agree_min=None) -> Iterator[T]:
+    """Multi-host-safe batch iterator: every host yields exactly the same
+    number of items, so every host dispatches the same number of
+    (collective) train steps.
+
+    Without it, unequal per-host shards deadlock: the host with more
+    batches dispatches another collective step while the others have
+    moved on to the final checkpoint. Hosts agree on min(items buffered)
+    every ``sync_every`` items (``agree_min``, by default the host-group
+    MIN of parallel/distributed.py).
+
+    Coverage: the stream stops for all hosts when the shortest host's
+    whole multi-epoch stream runs out, so the longer hosts lose their
+    surplus once over the run, not once an epoch; the dropped buffered
+    batches are logged. One host: a plain passthrough."""
+    if agree_min is None:
+        from tf_repos_tpu_torch.parallel.distributed import host_count, host_min
+
+        if host_count() == 1:
+            yield from it
+            return
+
+        def agree_min(n: int) -> int:
+            return int(host_min(np.int32(n)))
+
+    src = iter(it)
+    while True:
+        buf: List[T] = []
+        exhausted = False
+        while len(buf) < sync_every:
+            try:
+                buf.append(next(src))
+            except StopIteration:
+                exhausted = True
+                break
+        # the signal carries both the count and can-continue, so every
+        # host makes the same number of agreements (a host exhausted
+        # exactly on a window boundary must still stop everyone):
+        #   can continue -> sync_every + 1;  exhausted -> len(buf)
+        signal = len(buf) if exhausted else sync_every + 1
+        agreed = agree_min(signal)
+        if agreed > sync_every:  # every host has a full window and more
+            yield from buf
+            continue
+        if len(buf) > agreed:
+            print(
+                f"INFO: synchronized_iterator: dropping {len(buf) - agreed} "
+                f"buffered batch(es) — another host's stream is exhausted "
+                f"(coverage = shortest host's stream)"
+            )
+        yield from buf[:agreed]
+        return
+
+
+def shard_files_for_host(files: Sequence[str], process_index: int, process_count: int) -> List[str]:
+    """Round-robin file split over hosts. With fewer files than hosts
+    every host reads everything (with a warning): split the data into at
+    least as many files as hosts for a true shard."""
+    if len(files) < process_count:
+        warnings.warn(
+            f"shard_files_for_host: only {len(files)} input file(s) for "
+            f"{process_count} hosts — every host will read ALL files, so "
+            f"each example is trained on {process_count}x per epoch. Split "
+            f"the data into >= {process_count} files for a true shard.",
+            stacklevel=2,
+        )
+        return list(files)
+    return [f for i, f in enumerate(files) if i % process_count == process_index]
 
 
 # full-row shuffle permutation cap: below this chunk size the gather is

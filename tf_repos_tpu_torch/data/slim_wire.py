@@ -34,6 +34,14 @@ packer). Three kinds of bytes are rebuilt on the device:
     encode_batch / AliccpSlimEncoder   host, numpy (the map chain or the
                                        prefetch thread)
     decode_batch / decode_aliccp_batch device, torch (SlimWireModel)
+
+On a mesh every wire array keeps the example (or, for the COO arrays,
+the data-shard) axis first, so each rank takes its slice of the host's
+encoded batch (parallel/step.slice_batch) and decodes only that on its
+device. Across hosts the Ali-CCP encoder runs uncompressed (no lo/hi
+idx split, no dest counts; compress_coo=False) on the prefetch thread,
+ahead of the cross-host uid union, which rewrites the idx and re-pads
+the dest.
 """
 
 from __future__ import annotations

@@ -19,7 +19,9 @@ multi-hot fields by a COO triplet of their live slots (``__mhc_idx``,
 ``__mhc_dest``, ``__mhc_w``, see the class), and the mapper then remaps
 ``__mhc_idx`` (and the run rows ``__mhc_srows``) with the table's other
 id fields. Under --mh_bucket, MhPadBucketer slices the padded multi-hot
-fields to the batch's live width before either runs."""
+fields to the batch's live width before either runs. Across hosts
+(--dist_mode=2), GlobalUidsUnion turns each host's mapped batch into
+the global one's positions (a host collective, on the main thread)."""
 
 from __future__ import annotations
 
@@ -348,4 +350,114 @@ class MhCooPacker:
             for s, runs in enumerate(runs_per):
                 srows[s, : runs.size] = runs
             batch[MHC_PERM], batch[MHC_CIDX], batch[MHC_SROWS] = perm, cidx, srows
+        return batch
+
+
+class GlobalUidsUnion:
+    """The cross-host uid union (--dist_mode=2): each host's mapper dedups
+    only its own batch, but the sharded lazy step replicates the global
+    unique-id set on every rank (parallel/sparse_step.py). The union
+    exchanges the local sets (two host all-gathers a table: the counts,
+    then the sentinel-padded arrays), takes their union with the mapper's
+    O(V) flag array, and rewrites the already-remapped id fields from
+    local positions to global ones (both sets ascending: a searchsorted
+    over the local real uids gives the translation). Under the slim wire
+    that includes its cat-id block (the static prefix keeps position ==
+    id: every local set holds it), and under --mh_coo the COO idx of the
+    table that owns the packed fields. The idx-sorted aux stream is
+    dropped (its run rows would need the same rewrite and a cross-host
+    bucket), so --coo_sorted_bwd takes the plain packed accumulate across
+    hosts. The COO arrays are re-padded with zeros to the cross-host
+    bucket (monotonic), and the --mh_bucket widths (``bucketed_pairs``)
+    to theirs with one vector all-gather.
+
+    It issues collectives, so it runs on the main thread, in the same
+    batch order on every rank (the harness's _place), never on a
+    prefetch or --map_workers thread, whose calls would interleave with
+    the step's collectives. Every bucket is a function of the (same)
+    global counts and the (same) history, so every host gets the same
+    shapes. ``allgather`` (x -> [H, *x.shape]) defaults to
+    parallel/distributed.host_allgather."""
+
+    def __init__(self, slots: Dict[str, "SparseSlot"], bucketed_pairs=(), allgather=None):
+        if allgather is None:
+            from tf_repos_tpu_torch.parallel.distributed import host_allgather as allgather
+        self.slots = slots
+        self._allgather = allgather
+        self._bucket: Dict[str, int] = {}
+        self._seen: Dict[str, np.ndarray] = {}
+        self._coo_bucket = 0
+        self.bucketed_pairs = tuple(bucketed_pairs)
+        self._mh_width: Dict[str, int] = {ids: 0 for ids, _ in self.bucketed_pairs}
+
+    def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        from tf_repos_tpu_torch.data.slim_wire import CAT_IDS
+
+        gather = self._allgather
+        batch = dict(batch)
+        for name, slot in self.slots.items():
+            key = UIDS_PREFIX + name
+            local = np.asarray(batch[key])
+            m = int(np.asarray(gather(np.int32(local.shape[0]))).max())
+            padded = np.full(m, slot.vocab, np.int32)
+            padded[: local.shape[0]] = local
+            all_u = np.asarray(gather(padded)).ravel()
+
+            seen = self._seen.get(name)
+            if seen is None:
+                seen = self._seen.setdefault(name, np.zeros(slot.vocab, np.bool_))
+            seen.fill(False)
+            seen[all_u[all_u < slot.vocab]] = True
+            g = np.flatnonzero(seen).astype(np.int32)
+
+            # the mapper's quarter-pow2 ladder on the global count
+            bucket = max(self._bucket.get(name, 0), quarter_pow2(int(g.size)))
+            bucket = min(bucket, slot.vocab)
+            bucket = max(bucket, int(g.size))
+            self._bucket[name] = bucket
+
+            guids = np.full(bucket, slot.vocab, np.int32)
+            guids[: g.size] = g
+            n_real = int((local < slot.vocab).sum())
+            lp2gp = np.zeros(max(local.shape[0], 1), np.int32)
+            lp2gp[:n_real] = np.searchsorted(g, local[:n_real]).astype(np.int32)
+            coo_owned = False
+            for f in slot.fields:
+                if f in batch:
+                    batch[f] = np.take(lp2gp, batch[f], mode="clip")
+                elif f == "feat_ids" and CAT_IDS in batch:
+                    batch[CAT_IDS] = np.take(lp2gp, batch[CAT_IDS], mode="clip")
+                elif MHC_IDX in batch:
+                    # --mh_coo popped the padded multi-hot fields: their
+                    # live slots are the COO idx (remapped once, for the
+                    # table that owns the packed fields)
+                    coo_owned = True
+            if coo_owned:
+                batch[MHC_IDX] = np.take(lp2gp, batch[MHC_IDX], mode="clip")
+                for k in (MHC_PERM, MHC_CIDX, MHC_SROWS):
+                    batch.pop(k, None)
+            batch[key] = guids
+        if MHC_IDX in batch:
+            # the cross-host COO bucket: zero padding (idx = dest = 0,
+            # w = 0) adds exactly zero into pooled row 0
+            sizes = np.asarray(gather(np.int32(batch[MHC_IDX].shape[-1])))
+            self._coo_bucket = max(self._coo_bucket, int(sizes.max()))
+            target = self._coo_bucket
+            for k in (MHC_IDX, MHC_DEST, MHC_W, MHC_CDEST, MHC_PERM, MHC_CIDX):
+                if k in batch and batch[k].shape[-1] < target:
+                    a = np.asarray(batch[k])
+                    batch[k] = np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, target - a.shape[-1])])
+        present = [(ids_f, vals_f) for ids_f, vals_f in self.bucketed_pairs if ids_f in batch]
+        if present:
+            # the --mh_bucket widths (absent under --mh_coo, which popped
+            # the padded fields): one vector all-gather for every field
+            local_w = np.asarray([batch[ids_f].shape[-1] for ids_f, _ in present], np.int32)
+            widths = np.asarray(gather(local_w)).reshape(-1, local_w.size)
+            for (ids_f, vals_f), wmax in zip(present, widths.max(axis=0)):
+                self._mh_width[ids_f] = max(self._mh_width[ids_f], int(wmax))
+                target = self._mh_width[ids_f]
+                for k in (ids_f, vals_f):
+                    if k and k in batch and batch[k].shape[-1] < target:
+                        a = np.asarray(batch[k])
+                        batch[k] = np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, target - a.shape[-1])])
         return batch

@@ -1,2 +1,3 @@
-"""Feature tools (counterpart of the JAX package's features/): so far only
-the field-block layout that --field_blocks=auto:<feature_map> reads."""
+"""Feature tools (counterpart of the JAX package's features/): the Criteo,
+Ali-CCP, "smart" and Frappe preprocessors and the feature statistics,
+host code with the JAX package's flags and output bytes."""

@@ -1,6 +1,7 @@
 """Losses and the streaming AUC (counterpart of the JAX package's ops/metrics.py):
 tf.metrics.auc's 200-threshold confusion counts, accumulated on the
-device, and the per-example losses."""
+device, the per-example losses, and exact_auc (the Mann-Whitney
+statistic, for a run's whole prediction set)."""
 
 from __future__ import annotations
 
@@ -91,3 +92,35 @@ def sigmoid_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def squared_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """The reference's square_loss option on the sigmoid output."""
     return torch.square(torch.sigmoid(logits) - labels)
+
+
+def exact_auc(labels: torch.Tensor, preds: torch.Tensor,
+              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Exact ROC-AUC (the weighted Mann-Whitney U with tie correction),
+    O(n log n), in float32 as the JAX package computes it. Ranks are
+    cumulative weights, not indices, so zero-weight rows (batch padding)
+    take no rank mass:
+
+        U = sum_{i in pos} w_i * r_i - (W_pos^2 + sum_{i in pos} w_i^2) / 2
+        r_i = A_i + (E_i + w_i) / 2
+
+    with A_i the weight strictly below p_i and E_i the weight tied at p_i
+    (itself included). Unit weights give the midrank formula
+    U = sum(rank) - n_pos (n_pos + 1) / 2."""
+    if weights is None:
+        weights = torch.ones_like(preds)
+    order = torch.argsort(preds, stable=True)
+    p = preds[order]
+    w = weights[order].to(torch.float32)
+    y = labels[order].to(torch.float32)
+    n = p.shape[0]
+    is_new = torch.cat([torch.ones(1, dtype=torch.bool, device=p.device), p[1:] != p[:-1]])
+    grp = torch.cumsum(is_new.to(torch.int64), 0) - 1
+    grp_w = torch.zeros(n, dtype=torch.float32, device=p.device).index_add_(0, grp, w)
+    below = torch.cumsum(grp_w, 0) - grp_w  # the weight strictly below each group
+    r = below[grp] + (grp_w[grp] + w) / 2.0
+    wpos = w * y
+    w_pos = torch.sum(wpos)
+    w_neg = torch.sum(w) - w_pos
+    u = torch.sum(wpos * r) - (w_pos * w_pos + torch.sum(wpos * wpos)) / 2.0
+    return u / (w_pos * w_neg + 1e-12)

@@ -12,11 +12,23 @@ data coordinate d).
 Backend: NCCL when every rank has a card of its own; gloo on the CPU,
 and gloo when ranks share a card (NCCL refuses two ranks on one device).
 Gloo runs only all_reduce, broadcast and barrier on CUDA tensors, so the
-mesh's collectives keep to those three."""
+mesh's collectives keep to those three.
+
+Several hosts (--dist_mode=2, H hosts): each host runs L = D*M/H ranks,
+rank r = host * L + local, so with D % H == 0 host h holds the whole
+data rows [h*D/H, (h+1)*D/H) of the grid; its input stream is its own
+(per-host file shards, batch_size examples a batch), and each rank keeps
+the rows of its host-local data coordinate ``d_local`` of D/H. The
+backend is agreed over the whole world from every rank's device
+identity (agree_backend): one host cannot see that another maps its
+ranks to the same card. The host-collective group (one gloo group per
+local index, of the H ranks that share it) carries the host agreements
+of parallel/distributed.py."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, List, Optional, Sequence
 
 import torch
@@ -30,6 +42,30 @@ def choose_backend(devices: Sequence[torch.device]) -> str:
         return "nccl"
     if any(d.type not in ("cuda", "cpu") for d in devs):
         raise ValueError(f"unsupported mesh devices {devices!r} (cuda or cpu)")
+    return "gloo"
+
+
+def device_identity(device: torch.device) -> str:
+    """What tells two ranks' devices apart across hosts: a card's UUID
+    (two host processes on one machine may both say cuda:0), or "cpu"."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    props = torch.cuda.get_device_properties(device)
+    return f"cuda:{getattr(props, 'uuid', None) or device.index}"
+
+
+def agree_backend(store, rank: int, world: int, device: torch.device, timeout_s: float) -> str:
+    """The backend every rank takes, from every rank's device identity
+    exchanged through ``store`` before the process group exists: nccl
+    when every rank has a card of its own, gloo otherwise."""
+    import datetime
+
+    store.set(f"device/{rank}", json.dumps(device_identity(device)))
+    store.wait([f"device/{r}" for r in range(world)], datetime.timedelta(seconds=timeout_s))
+    ids = [json.loads(store.get(f"device/{r}")) for r in range(world)]
+    if all(i.startswith("cuda:") for i in ids) and len(set(ids)) == world:
+        return "nccl"
     return "gloo"
 
 
@@ -60,6 +96,7 @@ class Mesh:
     backend: str
     data_group: Any
     model_group: Any
+    hosts: int = 1
 
     @property
     def d(self) -> int:
@@ -72,6 +109,29 @@ class Mesh:
     @property
     def size(self) -> int:
         return self.data * self.model
+
+    @property
+    def local_data(self) -> int:
+        """D/H: the data coordinates of one host."""
+        return self.data // self.hosts
+
+    @property
+    def host(self) -> int:
+        return self.d // self.local_data
+
+    @property
+    def d_local(self) -> int:
+        """The rank's data coordinate within its host's rows."""
+        return self.d % self.local_data
+
+    def any_rank(self, flag: bool) -> bool:
+        """True on every rank if ``flag`` is true on any (a SUM over the
+        whole mesh)."""
+        if self.size == 1:
+            return bool(flag)
+        t = torch.tensor([int(bool(flag))], dtype=torch.int64, device=self.device)
+        dist.all_reduce(t)
+        return bool(t.item() > 0)
 
     def sum_data(self, x: torch.Tensor) -> torch.Tensor:
         """In-place SUM of ``x`` over the data axis (no collective at D=1)."""
@@ -100,14 +160,18 @@ def make_mesh(
     data: int = -1,
     model: int = 1,
     devices: Optional[Sequence[Any]] = None,
+    hosts: int = 1,
 ) -> Mesh:
     """The calling rank's Mesh over the initialised default process group
     (world size = data * model; data = -1 takes world // model). ``devices``
     lists the device of every rank in rank order (default: the visible
     cards, or the CPU for every rank when the backend is gloo without
     cards); several ranks may share a card, as with JAX's
-    make_mesh(devices=...). Every rank calls this with the same
-    arguments: the groups are made in the same order everywhere."""
+    make_mesh(devices=...). ``hosts`` > 1 lays the ranks over H hosts
+    (rank r on host r // (world/H)), makes the host-collective groups and
+    registers this rank's (parallel/distributed.set_host_group). Every
+    rank calls this with the same arguments: the groups are made in the
+    same order everywhere."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: torch.distributed is not initialised")
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -134,4 +198,17 @@ def make_mesh(
         g = dist.new_group(grid[d])
         if rank // model == d:
             model_group = g
-    return Mesh(data, model, rank, devices[rank], dist.get_backend(), data_group, model_group)
+    host_group = None
+    if hosts > 1:
+        if data % hosts:
+            raise ValueError(f"the data axis {data} does not divide over {hosts} hosts")
+        from tf_repos_tpu_torch.parallel.distributed import set_host_group
+
+        per = world // hosts
+        for local in range(per):
+            g = dist.new_group([h * per + local for h in range(hosts)], backend="gloo")
+            if rank % per == local:
+                host_group = g
+        set_host_group(hosts, rank // per, host_group)
+    return Mesh(data, model, rank, devices[rank], dist.get_backend(), data_group, model_group,
+                hosts)

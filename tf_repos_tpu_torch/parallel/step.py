@@ -107,26 +107,27 @@ def gather_rows(x: torch.Tensor, mesh: Mesh, v: int, spare: bool = False) -> tor
 
 
 def slice_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
-    """The data rank's part of a global host batch (the JAX package's
-    place_batch): rows [d*B/D, (d+1)*B/D) of every example-indexed array,
-    the __uids_* arrays whole (replicated), and row d of the COO arrays,
-    whose leading axis is the data shard (data/sparse_batch.MhCooPacker
-    with n_data = D)."""
-    if mesh.data == 1:
+    """The data rank's part of its host's batch (the JAX package's
+    place_batch): with n = D/H data coordinates a host (D on one host)
+    and the rank's host-local coordinate d, rows [d*B/n, (d+1)*B/n) of
+    every example-indexed array, the __uids_* arrays whole (replicated),
+    and row d of the COO arrays, whose leading axis is the host's data
+    shard (data/sparse_batch.MhCooPacker with n_data = n)."""
+    d, n = mesh.d_local, mesh.local_data
+    if n == 1:
         return batch
-    d, n = mesh.d, mesh.data
     out = {}
     for k, v in batch.items():
         if k.startswith(UIDS_PREFIX):
             out[k] = v
         elif k.startswith(COO_PREFIX):
             if v.shape[0] != n:
-                raise ValueError(f"{k}: {v.shape[0]} COO shards for a data-mesh size of {n}")
+                raise ValueError(f"{k}: {v.shape[0]} COO shards for {n} data coordinates a host")
             out[k] = v[d: d + 1]
         else:
             b = v.shape[0]
             if b % n:
-                raise ValueError(f"batch size {b} not divisible by the data-mesh size {n}")
+                raise ValueError(f"batch size {b} not divisible by {n} data coordinates a host")
             out[k] = v[d * (b // n): (d + 1) * (b // n)]
     return out
 

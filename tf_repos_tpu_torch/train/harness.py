@@ -11,7 +11,9 @@ Ali-CCP sample lines.
                (eval_loop_secs, eval_loop_timeout; eval_metrics.jsonl
                under --write_metrics)
   infer     -> pred.txt from the te* files with the predict step and the
-               serving lookup (K1 over the whole table); one process
+               serving lookup (K1 over the whole table); under several
+               hosts the te* files round robin over the hosts, merged
+               into the one-process pred.txt
   export    -> a versioned servable (serve/export.py) under
                servable_model_dir or <model_dir>/servable
 
@@ -64,14 +66,27 @@ keeps its data slice. Rank 0 alone writes logs, metrics, checkpoints
 device restores them), pred.txt and exports. --check_numerics raises
 FloatingPointError at the first step that makes a NaN, and
 --profile_steps traces steps [profile_start_step, +profile_steps) with
-torch.profiler into <model_dir>/profile (utils/observability.py). Flags
-whose code path the port does not have yet (check_supported:
---dist_mode=2, the multi-host mesh) raise NotImplementedError by name."""
+torch.profiler into <model_dir>/profile (utils/observability.py).
+
+Several hosts (--dist_mode=2 --worker_hosts --task_index, one CLI process
+a host, parallel/distributed.py): the mesh's data axis spans the hosts
+(host h holds data rows [h*D/H, (h+1)*D/H)) and --batch_size is per
+host. The tr files are split round robin over the hosts (va files are
+not: every host reads the same stream; te files only in infer), each
+host's ranks read the host's stream, pack the COO streams over the D/H
+local data shards, and in _place, on the main thread, take the
+cross-host uid union (data/sparse_batch.GlobalUidsUnion) before keeping
+their slice; synchronized_iterator keeps the hosts' streams to one
+length. A SIGTERM to a launcher reaches its ranks, and every rank of
+the mesh stops at the same eval-decision boundary (GracefulStop's OR
+over the mesh); the eval verdict is the chief's (_agree); the chief
+writes checkpoints to the shared model_dir."""
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import signal
 import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple
@@ -82,7 +97,12 @@ import torch
 from tf_repos_tpu_torch.config import Config, echo_config
 from tf_repos_tpu_torch.data.csv import CsvDataset
 from tf_repos_tpu_torch.data.libsvm import LibsvmDataset, glob_input_files
-from tf_repos_tpu_torch.data.pipeline import Prefetcher, parallel_mapped_batches
+from tf_repos_tpu_torch.data.pipeline import (
+    Prefetcher,
+    parallel_mapped_batches,
+    shard_files_for_host,
+    synchronized_iterator,
+)
 from tf_repos_tpu_torch.data.ragged import MH_PAIRS, AliccpDataset
 from tf_repos_tpu_torch.data.slim_wire import (
     MHC_HI,
@@ -103,13 +123,19 @@ from tf_repos_tpu_torch.data.sparse_batch import (
     MHC_SROWS,
     MHC_W,
     UIDS_PREFIX,
+    GlobalUidsUnion,
     MhCooPacker,
     MhPadBucketer,
     SparseBatchMapper,
     mapped_batches,
 )
 from tf_repos_tpu_torch.models import create_model, input_format
-from tf_repos_tpu_torch.parallel.distributed import init_distributed, is_chief
+from tf_repos_tpu_torch.parallel.distributed import (
+    host_index,
+    host_max,
+    init_distributed,
+    is_chief,
+)
 from tf_repos_tpu_torch.parallel.mesh import Mesh, mesh_devices
 from tf_repos_tpu_torch.parallel.sparse_step import (
     ShardedSparseState,
@@ -133,17 +159,7 @@ from tf_repos_tpu_torch.utils.tree import tree_map
 
 
 def check_supported(cfg: Config) -> None:
-    """Reject, by name, every flag value whose path is not ported yet."""
-    unsupported = {
-        # the multi-host mesh: worker_hosts/task_index, per-host file
-        # shards, the cross-host uid union
-        "--dist_mode=2": cfg.dist_mode == 2,
-    }
-    bad = [name for name, hit in unsupported.items() if hit]
-    if bad:
-        raise NotImplementedError(
-            f"{', '.join(bad)}: not implemented in tf_repos_tpu_torch yet"
-        )
+    """Reject flag values that name no path."""
     if cfg.compute_dtype not in ("float32", "f32", "", "bfloat16", "bf16"):
         raise ValueError(f"unsupported compute_dtype {cfg.compute_dtype!r}")
 
@@ -162,10 +178,20 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
 
 
 class GracefulStop:
-    """SIGTERM -> finish the current step, checkpoint, stop."""
+    """SIGTERM -> finish the current step, checkpoint, stop.
 
-    def __init__(self, install: bool):
+    On a mesh the signal reaches the ranks at different times (and under
+    several hosts only one host's ranks), and a rank that stops alone
+    deadlocks the others' collectives: ``agree_any`` (the mesh's OR over
+    every rank) is consulted only at the eval-decision boundaries, which
+    every rank reaches at the same step, so all stop at the same one."""
+
+    def __init__(self, install: bool, decision_steps: int = 1, k: int = 1, agree_any=None):
         self.requested = False
+        self.stopped = False
+        self._decision_steps = max(decision_steps, 1)
+        self._k = max(k, 1)
+        self._agree_any = agree_any
         self._prev = None
         self._installed = False
         if install:
@@ -179,17 +205,32 @@ class GracefulStop:
         self.requested = True
         print("INFO: SIGTERM received; will checkpoint and stop at a step boundary")
 
+    def should_stop(self, step: int) -> bool:
+        if self._agree_any is None:
+            self.stopped = self.requested
+        elif step % self._decision_steps < self._k:
+            self.stopped = bool(self._agree_any(self.requested))
+        return self.stopped
+
     def restore(self) -> None:
         if self._installed:
             signal.signal(signal.SIGTERM, self._prev)
 
 
-def mesh_shape(cfg: Config) -> Optional[Tuple[int, int]]:
+def mesh_shape(cfg: Config, hosts: int = 1) -> Optional[Tuple[int, int]]:
     """(data, model) of the mesh the CLI spawns, or None for one process:
     JAX's rule (no mesh when one card is visible, or at --mesh_data=1
     --mesh_model<=1; --mesh_data=-1 takes every visible card), with every
-    requested position a process on --device=cpu (-1 counts one there)."""
+    requested position a process on --device=cpu (-1 counts one there).
+    Over several hosts always a mesh, --mesh_data=-1 taking every host's
+    visible cards (one data row a host on the CPU)."""
     model = max(cfg.mesh_model, 1)
+    if hosts > 1:
+        if cfg.mesh_data > 0:
+            return cfg.mesh_data, model
+        if torch.device(cfg.device).type == "cpu":
+            return hosts, model
+        return hosts * max(torch.cuda.device_count() // model, 1), model
     if torch.device(cfg.device).type == "cpu":
         data = max(cfg.mesh_data, 1)
     else:
@@ -200,16 +241,16 @@ def mesh_shape(cfg: Config) -> Optional[Tuple[int, int]]:
     return None if data * model == 1 else (data, model)
 
 
-def check_mesh(cfg: Config, data: int) -> None:
-    """What a mesh refuses, before any rank starts."""
-    if cfg.batch_size % data:
+def check_mesh(cfg: Config, data: int, hosts: int = 1) -> None:
+    """What a mesh refuses, before any rank starts: a data axis that does
+    not divide over the hosts, and a (per-host) batch that does not
+    split over a host's data coordinates."""
+    if data % hosts:
+        raise ValueError(f"the data axis {data} does not divide over {hosts} hosts")
+    if cfg.batch_size % (data // hosts):
         raise ValueError(
-            f"batch size {cfg.batch_size} not divisible by the data-mesh size {data}"
-        )
-    if cfg.slim_transfer:
-        raise NotImplementedError(
-            "--slim_transfer under a mesh: not implemented in tf_repos_tpu_torch yet "
-            "(the wire's arrays are not split by example)"
+            f"batch size {cfg.batch_size} not divisible by the data-mesh size {data // hosts}"
+            + (f" (the data coordinates of one of {hosts} hosts)" if hosts > 1 else "")
         )
 
 
@@ -218,8 +259,9 @@ class Harness:
         check_supported(cfg)
         self.cfg = cfg
         self.mesh = mesh
+        self.hosts = mesh.hosts if mesh is not None else 1
         if mesh is not None:
-            check_mesh(cfg, mesh.data)
+            check_mesh(cfg, mesh.data, mesh.hosts)
         self.device = mesh.device if mesh is not None else resolve_device(cfg.device)
         self.chief = is_chief()
         self.model = create_model(cfg)
@@ -286,6 +328,13 @@ class Harness:
                 "--mh_bucket applies to the Ali-CCP padded multi-hot layout "
                 f"(model {self.model.name} reads {input_format(self.model)})"
             )
+        if self._mh_bucket and self.hosts > 1 and not cfg.sparse_table_update:
+            raise ValueError(
+                "--mh_bucket under multi-host requires "
+                "--sparse_table_update: every host must dispatch "
+                "identical shapes, and the cross-host width consensus "
+                "rides GlobalUidsUnion's main-thread collectives"
+            )
         self._table_dtype = None
         if cfg.param_dtype not in ("float32", "f32", ""):
             if cfg.param_dtype not in ("bfloat16", "bf16"):
@@ -304,6 +353,11 @@ class Harness:
                 fused_table=cfg.fused_table, catchup=cfg.sparse_catchup,
                 dma_scatter=cfg.dma_scatter,
             )
+        # the cross-host uid union (_place, on the main thread)
+        self._uids_union = None
+        if self._sparse_slots is not None and self.hosts > 1:
+            self._uids_union = GlobalUidsUnion(
+                self._sparse_slots, bucketed_pairs=MH_PAIRS if self._mh_bucket else ())
         self._train_step = None
         self._sharded = None
         if mesh is not None:
@@ -365,7 +419,11 @@ class Harness:
         return int(self.mesh.broadcast(t).item())
 
     def _place(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """A host batch on the device: the data rank's slice under a mesh."""
+        """A host batch on the device: the data rank's slice under a mesh,
+        after the cross-host uid union (a collective: the main thread,
+        batches in stream order) under several hosts."""
+        if self._uids_union is not None and any(k.startswith(UIDS_PREFIX) for k in batch):
+            batch = self._uids_union(batch)
         if self.mesh is not None:
             batch = slice_batch(batch, self.mesh)
         return to_device(batch, self.device)
@@ -442,16 +500,18 @@ class Harness:
         then the host map chain (width bucketer on every split; on the
         training split of the sparse step the COO packer and the dedup
         mapper), on --map_workers threads for the training split, behind
-        a Prefetcher thread."""
+        a Prefetcher thread. Under several hosts the tr files are the
+        host's shard, and synchronized_iterator holds every host's stream
+        to the shortest's length."""
         cfg = self.cfg
         fmt = input_format(self.model)
-        if fmt == "aliccp":
-            files = [f for f in glob_input_files(cfg.data_dir, f"{split}*", shuffle=shuffle, seed=cfg.seed)
-                     if not f.endswith((".libsvm", ".csv"))]
-        else:
-            files = glob_input_files(cfg.data_dir, f"{split}*{fmt}", shuffle=shuffle, seed=cfg.seed)
+        files = self._glob_split(split, shuffle=shuffle)
+        if self.hosts > 1 and split == "tr":
+            files = shard_files_for_host(files, host_index(), self.hosts)
         if not files:
             raise FileNotFoundError(f"no {split}* {fmt} input files in {cfg.data_dir}")
+        if self.mesh is not None and cfg.packed_cache and shuffle:
+            self._settle_packed_cache(files, fmt)
         ds: Iterable = self._build_reader(files, fmt, shuffle=shuffle, epochs=epochs)
         factories = []
         slim_in_chain = False
@@ -482,16 +542,18 @@ class Harness:
                 cdest = cfg.pallas_expand and self.model.wants_sorted_seg() and not slim
                 saux = (cfg.coo_sorted_bwd and cfg.pallas_expand
                         and self.model.wants_sorted_aux() and not slim)
-                n_data = self.mesh.data if self.mesh is not None else 1
+                # the host's own data shards
+                n_data = self.mesh.local_data if self.mesh is not None else 1
                 factories.append(lambda: MhCooPacker(groups, floor=floor, combine=combine,
                                                      cdest_aux=cdest, sorted_aux=saux,
                                                      n_data=n_data))
             slots, pad_mode = self._sparse_slots, cfg.sparse_pad_mode
             factories.append(lambda: SparseBatchMapper(slots, pad_mode=pad_mode))
-            if cfg.slim_transfer and cfg.map_workers > 1 and fmt == "aliccp":
+            if cfg.slim_transfer and cfg.map_workers > 1 and fmt == "aliccp" and self.hosts == 1:
                 # the encoder on the worker pool too, with one wire state
                 # for the pool (per-worker first-batch commits would
-                # diverge)
+                # diverge); one host only: across hosts it runs on the
+                # prefetch thread, uncompressed, ahead of the union
                 enc, shared = self._aliccp_encoder_args(), SharedWireState()
                 factories.append(lambda: AliccpSlimEncoder(shared=shared, **enc))
                 slim_in_chain = True
@@ -515,7 +577,34 @@ class Harness:
                 ds = mapped_batches(ds, f())
         if cfg.slim_transfer and not slim_in_chain:
             ds = self._slim_wrap(ds)
-        return Prefetcher(ds, size=cfg.prefetch_batches)
+        it: Iterable = Prefetcher(ds, size=cfg.prefetch_batches)
+        if self.hosts > 1:
+            # every host dispatches the same number of collective steps
+            it = synchronized_iterator(it)
+        return it
+
+    def _settle_packed_cache(self, files: List[str], fmt: str) -> None:
+        """Under a mesh every rank of a host reads the host's files, and a
+        --packed_cache build shuffles other batches than a cache read
+        (parsed blobs against the cache's row slices, each permuted): a
+        rank that opened a file after another had committed its cache
+        would train on another stream. So the host's first rank completes
+        every cache first (one pass, which parses only the files without
+        one) and every rank then reads the caches."""
+        if self.mesh.m == 0 and self.mesh.d_local == 0:
+            for _ in self._build_reader(files, fmt, shuffle=False, epochs=1):
+                pass
+        self.mesh.barrier()
+
+    def _glob_split(self, split: str, *, shuffle: bool = False) -> List[str]:
+        """The split's input files of the model's format (shuffled by
+        --seed for the training split: the same order on every host)."""
+        cfg = self.cfg
+        fmt = input_format(self.model)
+        if fmt == "aliccp":
+            return [f for f in glob_input_files(cfg.data_dir, f"{split}*", shuffle=shuffle, seed=cfg.seed)
+                    if not f.endswith((".libsvm", ".csv"))]
+        return glob_input_files(cfg.data_dir, f"{split}*{fmt}", shuffle=shuffle, seed=cfg.seed)
 
     def _coo_combine_active(self) -> bool:
         """--mh_coo_combine applies only where every COO consumer is
@@ -525,10 +614,11 @@ class Harness:
 
     def _aliccp_encoder_args(self) -> Dict[str, Any]:
         """The Ali-CCP encoder's arguments: the id bound of unmapped
-        batches, the COO groups (the counts form on one process), and
-        whether the COO w may be dropped."""
+        batches, the COO groups (the split idx and the counts form on one
+        host: across hosts the union rewrites the raw idx and re-pads the
+        dest), and whether the COO w may be dropped."""
         cfg = self.cfg
-        return dict(vocab=cfg.feature_size, compress_coo=True,
+        return dict(vocab=cfg.feature_size, compress_coo=self.hosts == 1,
                     n_groups=len(self.model.mh_coo_groups()) if cfg.mh_coo else 0,
                     drop_w_ok=not self._coo_combine_active())
 
@@ -594,9 +684,9 @@ class Harness:
         gen = torch.Generator(device=self.device).manual_seed(fold_seed(cfg.seed + 1, d))
         sr_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 2)
         writer = MetricsWriter(self.model_dir) if cfg.write_metrics and self.chief else None
-        # one rank's SIGTERM must not stop it alone: the cross-rank OR of
-        # the flag comes with the multi-host mesh
-        stop = GracefulStop(cfg.graceful_shutdown and self.mesh is None)
+        # on a mesh every rank stops at the same decision boundary
+        stop = GracefulStop(cfg.graceful_shutdown, cfg.eval_decision_steps, K,
+                            agree_any=self.mesh.any_rank if self.mesh is not None else None)
         profiler = None
         losses: List[torch.Tensor] = []
         t0 = time.time()
@@ -646,17 +736,17 @@ class Harness:
                     if writer and metrics:
                         writer.write(step, metrics, kind="eval")
                     last_eval = time.time()
-            if stop.requested:
+            if stop.should_stop(step):
                 print(f"INFO: graceful shutdown: checkpointing at step {step}")
                 break
-        if group and not stop.requested:  # tail of an unfinished K-group
+        if group and not stop.stopped:  # tail of an unfinished K-group
             state = run_group(state, group)
             step += len(group)
         if profiler:
             profiler.__exit__()
         stop.restore()
         self._save(ckpt, step, state)
-        if not stop.requested:
+        if not stop.stopped:
             metrics = self._maybe_eval(state["params"], state["mstate"]) or metrics
         else:
             metrics["stopped_by_signal"] = 1.0
@@ -737,7 +827,8 @@ class Harness:
         whole table on the card, the ids normalised as JAX's gather
         treats them. Under a mesh with the sharded predict step (every
         rank its data slice over its table shards), the predictions in
-        global batch order, written by the chief."""
+        global batch order, written by the chief; under several hosts
+        _infer_multiprocess."""
         from tf_repos_tpu_torch.ops.sparse_rows import make_serving_lookup
 
         ts = self._restore()
@@ -748,6 +839,8 @@ class Harness:
             predict_step = L.build_predict_step(self.model, lookup=make_serving_lookup())
         out_path = out_path or os.path.join(self.cfg.data_dir, "pred.txt")
         key = self.model.prediction_keys[0]
+        if self.hosts > 1:
+            return self._infer_multiprocess(out_path, params, ts["mstate"], predict_step, key)
         f = open(out_path, "w") if self.chief else None
         try:
             for batch in self._dataset("te", shuffle=False, epochs=1):
@@ -759,6 +852,77 @@ class Harness:
         finally:
             if f is not None:
                 f.close()
+        return out_path
+
+    def _infer_multiprocess(self, out_path: str, params, mstate, predict_step, key: str) -> str:
+        """Infer over several hosts: the te* files round robin over the
+        hosts, every host dispatching the same number of predict steps (a
+        host whose files ran out feeds files[0]'s first batch as a
+        template and writes nothing of it), the first rank of each host
+        writing its host's rows of every batch into one part a file under
+        ``<out_path>.parts``, and the chief merging the parts in glob
+        order. Eval-mode predictions are per example (no dropout, the
+        batch-norm running stats), so the merged file equals the
+        one-process pred.txt although the batch boundaries differ. The
+        model_dir and data_dir are the hosts' shared filesystem."""
+        cfg = self.cfg
+        mesh = self.mesh
+        fmt = input_format(self.model)
+        files = self._glob_split("te")
+        if not files:
+            raise FileNotFoundError(f"task_type=infer: no te* input files in {cfg.data_dir}")
+        h, n = host_index(), self.hosts
+        parts_dir = out_path + ".parts"
+        if self.chief:
+            os.makedirs(parts_dir, exist_ok=True)
+            for f in os.listdir(parts_dir):
+                os.remove(os.path.join(parts_dir, f))
+        mesh.barrier()
+        writer = mesh.m == 0 and mesh.d_local == 0
+
+        def file_batches(path):
+            # no width bucketer: the hosts' te batches keep their fixed
+            # pads (nothing agrees their widths across hosts)
+            ds: Iterable = self._build_reader([path], fmt, shuffle=False, epochs=1)
+            return self._slim_wrap(ds) if cfg.slim_transfer else ds
+
+        tmpl = next(iter(file_batches(files[0])))
+
+        def my_work():
+            for i in range(h, len(files), n):
+                for b in file_batches(files[i]):
+                    yield i, b
+
+        it = my_work()
+        pending = next(it, None)
+        part_f, part_i = None, -1
+        try:
+            while int(host_max(np.int32(pending is not None))):
+                i, b = pending if pending is not None else (-1, tmpl)
+                preds = predict_step(params, mstate, self._place(b))[key]
+                if pending is not None and writer:
+                    bh = len(b["mask"])
+                    local = preds[h * bh: (h + 1) * bh].cpu().numpy()
+                    if i != part_i:
+                        if part_f:
+                            part_f.close()
+                        part_i = i
+                        part_f = open(os.path.join(parts_dir, f"part{i:05d}"), "w")
+                    for p, m in zip(local, b["mask"]):
+                        if m > 0:
+                            part_f.write(f"{p:f}\n")
+                pending = next(it, None)
+        finally:
+            if part_f:
+                part_f.close()
+        mesh.barrier()
+        if self.chief:
+            with open(out_path, "w") as out:
+                for name in sorted(os.listdir(parts_dir)):
+                    with open(os.path.join(parts_dir, name)) as pf:
+                        out.write(pf.read())
+            shutil.rmtree(parts_dir, ignore_errors=True)
+        mesh.barrier()
         return out_path
 
     # ---------------------------------------------------------------- export
@@ -795,16 +959,26 @@ def _dispatch(h: Harness, task_type: str) -> Dict[str, float] | str:
 
 
 def run_task_on_mesh(mesh: Mesh, cfg: Config) -> Dict[str, float] | str:
-    """One mesh rank's task (parallel/launch.run_on_mesh calls it)."""
-    return _dispatch(Harness(cfg, mesh), cfg.task_type)
+    """One mesh rank's task (parallel/launch.run_on_mesh and run_on_hosts
+    call it). Under several hosts the chief clears the shared model_dir
+    for --clear_existing_model before any rank reads it."""
+    h = Harness(cfg, mesh)
+    if mesh.hosts > 1 and cfg.clear_existing_model and cfg.task_type == "train":
+        if h.chief:
+            clear_existing_model(cfg.resolved_model_dir())
+        mesh.barrier()
+    return _dispatch(h, cfg.task_type)
 
 
 def run_task(cfg: Config) -> Dict[str, float] | str:
     """CLI entry: task_type dispatch, on one process or on a spawned mesh
-    (mesh_shape) with one card a rank, or the CPU for every rank."""
+    (mesh_shape) with one card a rank, or the CPU for every rank; under
+    --dist_mode=2 this host's ranks of the mesh over the hosts."""
     echo_config(cfg)
     check_supported(cfg)
-    init_distributed(cfg)
+    layout = init_distributed(cfg)
+    if layout is not None and layout.count > 1:
+        return _run_on_hosts(cfg, layout)
     shape = mesh_shape(cfg)
     if shape is None:
         h = Harness(cfg)
@@ -821,3 +995,16 @@ def run_task(cfg: Config) -> Dict[str, float] | str:
 
     return run_on_mesh(run_task_on_mesh, (cfg,), data=data, model=model,
                        devices=mesh_devices(data, model, cfg.device))
+
+
+def _run_on_hosts(cfg: Config, layout) -> Dict[str, float] | str:
+    """This host's part of the mesh over ``layout``'s hosts."""
+    data, model = mesh_shape(cfg, layout.count)
+    check_mesh(cfg, data, layout.count)
+    if cfg.task_type not in ("train", "eval", "eval_loop", "infer", "export"):
+        raise ValueError(f"unknown task_type {cfg.task_type!r}")
+    from tf_repos_tpu_torch.parallel.launch import run_on_hosts
+
+    return run_on_hosts(run_task_on_mesh, (cfg,), data=data, model=model,
+                        devices=mesh_devices(data // layout.count, model, cfg.device),
+                        hosts=layout.hosts, task_index=layout.index)

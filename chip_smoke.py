@@ -9,6 +9,8 @@
                                                    # _zoo_<model>...)
     python3 chip_smoke.py --only=multihost         # phase 7 alone (writes the main
                                                    # paths' files itself; no result line)
+    python3 chip_smoke.py --only=serving_load      # phase 8 alone (writes phase 7e's
+                                                   # surrogate itself; no result line)
 
 Four main paths, each driven through the CLI with every launch counter
 set to 0 just before and read just after, then serving from their
@@ -271,11 +273,32 @@ Phases, each fatal on failure (exit code 1, no result line):
      one REST request of cont/cat instances through PredictionServer on
      the card equal to Scorer.score, and both gathers checked and timed
      as the serving gathers above;
-then the kernel report line (with the mesh ranks' K1, K2 and K7 rows,
-and phase 7's K1, K2, K3, K4, K7 and K8 rows) and, last, the device
-line. A rank of phase 6 or 7 is a spawned process, and a phase-7 host
-a process of its own: both import this script (hence the __main__
-guard) and the harness.
+  8. after serving, the port's serving load benchmarks and zoo AUC
+     ladder through their scripts (serving_load_phase): (a)
+     scripts/torch_bench_serving.py --repeats=10 (its own DeepFM servable
+     at V=117,581, K=16, towers 256/128/64; HTTP batches of 1 to 256
+     instances, one client): each batch size's K1 launches equal to the
+     micro-batches scored and to the requests, each batch's predictions
+     within 1e-5 relative of a CPU Scorer (f32 towers), the fit and the
+     /stats split logged;
+     (b) scripts/torch_bench_serving_load.py on (a)'s servable, rest and
+     example at 1, 8 and 32 clients for 2 s: no error or shed, occupancy
+     at least 1, K1 once a scored micro-batch (between the level's
+     instances over max_batch and its requests); (c)
+     scripts/torch_zoo_auc.py, DeepFM and LR (wide on the csv view), one
+     epoch on phase 7e's surrogate files, its csv view made in 7e's
+     process and its ceiling (nothing generated again): no row error,
+     each AUC in [LADDER_AUC_BAR, ceiling + 0.01]; each row's checkpoint
+     inferred on the card (K1 once a batch: one table gather) and on the
+     CPU, pred.txt within 2e-5 relative (+ one unit of its sixth
+     decimal). K1 gets three rows of its own in the kernel report, each
+     timed at its own table and ids: the bench servable (launches of (a)
+     and (b)) and each ladder row's infer;
+then one "phase N: <s> s" line a phase, the kernel report line (with
+the mesh ranks' K1, K2 and K7 rows, phase 7's K1, K2, K3, K4, K7 and K8
+rows and phase 8's K1 rows) and, last, the device line. A rank of phase 6 or 7 is a
+spawned process, and a phase-7 host a process of its own: both import
+this script (hence the __main__ guard) and the harness.
 """
 
 from __future__ import annotations
@@ -341,6 +364,7 @@ from tf_repos_tpu_torch.train import loop as L  # noqa: E402
 from tf_repos_tpu_torch.train import sparse as SP  # noqa: E402
 from tf_repos_tpu_torch.train.harness import Harness, to_device  # noqa: E402
 from tf_repos_tpu_torch.train.optimizers import make_optimizer  # noqa: E402
+from tf_repos_tpu_torch.utils.platform import card_label  # noqa: E402
 from tf_repos_tpu_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -453,6 +477,29 @@ def zoo_width(name: str) -> dict:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def script(name: str):
+    """The port's script scripts/<name>.py as a module (scripts/ is no
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+PHASE_S: dict = {}  # seconds spent in each phase, printed at the end
+
+
+def timed(phase: str, fn, *args):
+    """fn(*args), its wall time added to PHASE_S[phase]."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[phase] = PHASE_S.get(phase, 0.0) + time.perf_counter() - t0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2166,7 +2213,7 @@ def old_serving_gather(table, ids):
     return SR.expand_rows(table, flat).reshape(tuple(ids.shape) + (table.shape[-1],))
 
 
-def serving_k1(label, table, ids):
+def serving_k1(label, table, ids, count_ops=True):
     """K1 at a scorer's gather over the whole table, ``ids`` as the
     model's lookup receives them: the one-launch serving entry
     (expand_rows_clamped) bit-exact against the plain gather on
@@ -2176,8 +2223,9 @@ def serving_k1(label, table, ids):
     of the whole gather as the scorer ran it before (normalize_ids + K1)
     and as it runs it now (the one launch), of the plain version,
     index_select and an empty launch; the device operations of both
-    gathers (torch.profiler); and the bound: the ids, the distinct rows
-    they read and the output, each moved once."""
+    gathers (torch.profiler; unless count_ops is false); and the bound:
+    the ids, the distinct rows they read and the output, each moved
+    once."""
     v, c = table.shape
     idx = SR.normalize_ids(ids.reshape(-1), v).to(torch.int32).contiguous()
     # the same ids in the same layout (a view keeps its row stride), with
@@ -2209,14 +2257,18 @@ def serving_k1(label, table, ids):
     # an empty launch in the same harness: a kernel that spins 0 cycles,
     # the floor under any one-launch gather
     empty = cuda_ms(lambda: torch.cuda._sleep(0))
-    ops_before = device_ops(lambda: old_serving_gather(table, ids))
-    ops_after = device_ops(lambda: SR.expand_rows_clamped(table, ids))
-    check(ops_after == 1, f"the serving gather ({label}) made {ops_after} device operations, not 1")
+    ops = "not counted"
+    if count_ops:
+        ops_before = device_ops(lambda: old_serving_gather(table, ids))
+        ops_after = device_ops(lambda: SR.expand_rows_clamped(table, ids))
+        check(ops_after == 1,
+              f"the serving gather ({label}) made {ops_after} device operations, not 1")
+        ops = f"{ops_before} → {ops_after}"
     log(f"kernel expand_rows (serving, whole table, {label}): table [{v}, {c}] f32, ids "
         f"{tuple(ids.shape)} {ids.dtype} strides {ids.stride()}, N={n}, {rows} distinct rows: "
         f"bit-exact (f32, bf16, wild ids)  kernel alone {t_kernel:.4f} ms; the gather before "
-        f"(normalize_ids + K1) {t_before:.4f} ms in {ops_before} device operations, now (one "
-        f"launch) {t[0]:.4f} ms in {ops_after}; plain {t[1]:.4f} ms  library (index_select) "
+        f"(normalize_ids + K1) {t_before:.4f} ms, now (one launch) {t[0]:.4f} ms; device "
+        f"operations {ops}; plain {t[1]:.4f} ms  library (index_select) "
         f"{t[2]:.4f} ms  bound {bound:.5f} ms (bytes: {nbytes / 1e6:.2f} MB); an empty launch "
         f"(torch.cuda._sleep(0)) in the same harness {empty:.4f} ms")
     return t, bound
@@ -4156,9 +4208,14 @@ def surrogate_data(work, train_lines, test_lines) -> None:
     cutoff = CSG.scaled_cutoff(train_lines)
     t0 = time.perf_counter()
     info = FC.preprocess(raw, data, cutoff, workers=cores)
+    t_pre = time.perf_counter() - t0
+    # phase 8c's ladder reads the wide rows from the csv view of these lines
+    t0 = time.perf_counter()
+    script("torch_zoo_auc").make_csv_view(os.path.join(raw, "train.txt"),
+                                         os.path.join(work, "surrogate_csv"))
     with open(os.path.join(work, "surrogate.json"), "w") as f:
         json.dump(dict(stats=shard_stats, bayes=bayes, t_gen=t_gen, cutoff=cutoff, info=info,
-                       t_pre=time.perf_counter() - t0, cores=cores), f)
+                       t_pre=t_pre, t_csv=time.perf_counter() - t0, cores=cores), f)
 
 
 def surrogate_process(work):
@@ -4203,7 +4260,8 @@ def surrogate_leg(dev, work, card, res, proc):
     log(f"leg (e) surrogate: {SURR_TRAIN} train lines (ctr {sd['stats']['ctr']:.4f}, "
         f"{sd['cores']} worker processes) and {SURR_TEST} test lines in {sd['t_gen']:.1f} s; Bayes "
         f"ceiling {bayes:.4f}; preprocess (cutoff {sd['cutoff']}, {sd['cores']} workers) in "
-        f"{sd['t_pre']:.1f} s: feature_size {info['feature_size']} (beside legs (a)-(d))")
+        f"{sd['t_pre']:.1f} s: feature_size {info['feature_size']}; its csv view in "
+        f"{sd['t_csv']:.1f} s (beside legs (a)-(d))")
     width = dict(SURR_WIDTH, feature_size=info["feature_size"], field_blocks=f"auto:{fmap}")
     argv = [f"--{k}={v}" for k, v in width.items()] + [
         "--task_type=train", "--num_epochs=1", "--log_steps=50", f"--data_dir={data}",
@@ -4474,6 +4532,218 @@ def multihost_only(dev, work, card) -> int:
     return 0
 
 
+# ------------------------------------------------------------------ phase 8
+# the serving load benchmarks and the zoo AUC ladder, each through its
+# script as a user runs it: (a) the latency fit, (b) the load curve on (a)'s
+# servable, (c) the ladder's DeepFM and LR rows on phase 7e's surrogate
+LOAD_ARGV = ["--protocols=rest,example", "--concurrency=1,8,32", "--duration=2"]
+LADDER_ROWS = ("DeepFM", "LR")
+# one epoch of the 270,000 train lines at the rows' published flags
+# (DeepFM lr 1e-4: ~1,050 steps, a seventh of the full ladder's); phase
+# 7e's 0.70 is at lr 1e-3 (PERF.md, written before the first run)
+LADDER_AUC_BAR = 0.65
+
+
+def latency_fit_leg(card):
+    """(a) scripts/torch_bench_serving.py --repeats=10 on the card: its own
+    DeepFM servable, one client; each batch size's K1 launches equal to
+    the micro-batches the server scored and to the requests sent, each
+    batch's predictions held to a CPU Scorer on the same servable (1e-5
+    relative: the bench servable's towers are f32); the fit and the
+    /stats split logged."""
+    res = script("torch_bench_serving").main(["--repeats=10"])
+    cpu = Scorer(res["servable"], warmup=False, device="cpu")
+    worst = 0.0
+    for n, b in res["batches"].items():
+        check(b["k1_launches"] == b["scored_batches"] == b["requests"],
+              f"(a) batch {n}: K1 launched {b['k1_launches']} times for {b['scored_batches']} "
+              f"scored micro-batches of {b['requests']} requests")
+        worst = max(worst, held_rel(f"(a) batch {n} card vs CPU scorer", b["predictions"],
+                                    cpu.score(b["instances"])["prob"], 1e-5))
+    fit, st = res["fit"], res["stats"]
+    log(f"phase 8 (a) latency fit on {card}: {fit['ms_per_example']}*batch + {fit['ms_fixed']} "
+        f"ms; /stats batchify p50 {fit['server_batchify_ms_p50']} ms, device p50 "
+        f"{fit['server_device_ms_p50']} ms, score p50 {st.get('score_ms', {}).get('p50')} ms, "
+        f"occupancy {st.get('n', {}).get('mean')}; bare device sync {fit['bare_device_sync_ms']} "
+        f"ms, fixed cost less it {fit['ms_fixed_colocated_est']} ms; K1 once a request at "
+        f"every batch size; card vs CPU scorer max abs diff {worst:.3e} (held at 1e-5 "
+        "relative + 1e-6)")
+    return res
+
+
+def load_leg(card, servable):
+    """(b) scripts/torch_bench_serving_load.py on (a)'s servable, rest and
+    example at 1, 8 and 32 clients for 2 s each: every level answered
+    with no error and no shed, occupancy at least 1, and K1 launched once
+    for each micro-batch the server scored, which lies between the
+    level's instances over max_batch and its requests."""
+    res = script("torch_bench_serving_load").main(
+        [*LOAD_ARGV, f"--servable_model_dir={servable}"])
+    for name, cell in res["result"].items():
+        n = res["counts"][name]
+        check(cell["errors"] == 0 and cell["shed"] == 0 and cell["requests"] > 0
+              and cell["batch_occupancy_mean"] >= 1, f"(b) {name}: {cell}")
+        lo = cell["requests"] * res["per_req"] / res["max_batch"]
+        check(n["k1_launches"] == n["scored_batches"] and lo <= n["scored_batches"] <=
+              cell["requests"], f"(b) {name}: K1 launched {n['k1_launches']} times for "
+              f"{n['scored_batches']} scored micro-batches of {cell['requests']} requests")
+        log(f"phase 8 (b) {name} on {card}: {cell['req_per_s']} req/s "
+            f"({cell['examples_per_s']} examples/s), p50 {cell['p50_ms']} ms, p99 "
+            f"{cell['p99_ms']} ms, occupancy {cell['batch_occupancy_mean']} (window of 256 "
+            f"batches), device p50 {cell['device_ms_p50']} ms; {cell['requests']} requests in "
+            f"{n['scored_batches']} micro-batches, K1 {n['k1_launches']} launches")
+    return res
+
+
+def ladder_leg(dev, work, card):
+    """(c) scripts/torch_zoo_auc.py, DeepFM and LR (wide on the csv view),
+    on phase 7e's surrogate files and csv view (linked into the ladder's
+    work dir, so nothing is generated again) with phase 7e's Bayes
+    ceiling in the script's resume file: both rows without error, each
+    AUC at least LADDER_AUC_BAR and at most the ceiling + 0.01; then
+    task_type=infer on each row's checkpoint over the te lines (DeepFM:
+    the preprocessed te.libsvm; wide: the csv view's va lines as te), K1
+    once a table gather a batch, pred.txt held to a CPU infer within 2e-5
+    relative (+ 1e-6, a unit of the file's sixth decimal); K1 at each
+    infer's gather as serving_k1 checks and times it, on the first batch's
+    ids and the row's trained table. Returns {row: (times, bound,
+    launches)}."""
+    from tf_repos_tpu_torch.models.wide_deep import WideDeep
+    from tf_repos_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_repos_tpu_torch.train.harness import run_task
+
+    ZA = script("torch_zoo_auc")
+    with open(os.path.join(work, "surrogate.json")) as f:
+        sd = json.load(f)
+    lad = os.path.join(work, "ladder")
+    os.makedirs(lad)
+    for link, target in (("raw", "surrogate_raw"), ("proc", "surrogate"), ("csv", "surrogate_csv")):
+        os.symlink(os.path.join(work, target), os.path.join(lad, link))
+    fs = sum(1 for _ in open(os.path.join(lad, "proc", "feature_map")))
+    check(fs == sd["info"]["feature_size"], f"(c) feature_map {fs} lines, {sd['info']}")
+    ZA.write_stamp(lad, SURR_TRAIN, SURR_TEST)
+    out = os.path.join(lad, "zoo.json")
+    with open(out, "w") as f:
+        json.dump({"train_lines": SURR_TRAIN, "feature_size": fs,
+                   "bayes_ceiling": round(sd["bayes"], 4), "runs": {}}, f)
+    t0 = time.perf_counter()
+    res = ZA.main([f"--train_lines={SURR_TRAIN}", f"--test_lines={SURR_TEST}",
+                   f"--models={','.join(LADDER_ROWS)}", f"--work_dir={lad}", f"--out={out}",
+                   f"--device={dev.type}"])
+    t_ladder = time.perf_counter() - t0
+    ceiling = res["bayes_ceiling"]
+    check(res["feature_size"] == fs and sorted(res["runs"]) == sorted(LADDER_ROWS), f"(c) {res}")
+    for name in LADDER_ROWS:
+        r = res["runs"][name]
+        check("error" not in r and LADDER_AUC_BAR <= r["auc"] <= ceiling + 0.01,
+              f"(c) {name}: {r} (bar {LADDER_AUC_BAR}, ceiling {ceiling})")
+    log(f"phase 8 (c) ladder on phase 7e's {SURR_TRAIN} lines (feature_size {fs}, ceiling "
+        f"{ceiling}) in {t_ladder:.1f} s: " + ", ".join(
+            f"{n} ({res['runs'][n]['model']}) auc {res['runs'][n]['auc']} in "
+            f"{res['runs'][n]['wall_s']} s" for n in LADDER_ROWS) + f" on {card}")
+    rows = {r[0]: r for r in ZA.LADDER}
+    launches = {}
+    for name in LADDER_ROWS:
+        row = rows[name]
+        wide = row[3].get("optimizer") == "wdl"
+        idir = os.path.join(work, "ladder_infer", name)
+        os.makedirs(idir)
+        te = os.path.join(idir, "te.csv" if wide else "te.libsvm")
+        os.symlink(os.path.join(lad, "csv", "va.csv") if wide else
+                   os.path.join(lad, "proc", "te.libsvm"), te)
+        lines = sum(1 for _ in open(te))
+        cfg = ZA.row_config(row, fs, lad, device=dev.type).replace(task_type="infer",
+                                                                   data_dir=idir)
+        SR.reset_launches()
+        t0 = time.perf_counter()
+        card_path = run_task(cfg)
+        k1 = SR.expand_rows.launches
+        t_card = time.perf_counter() - t0
+        got = np.loadtxt(card_path)
+        os.remove(card_path)
+        want = np.loadtxt(run_task(cfg.replace(device="cpu")))
+        batches = -(-lines // cfg.batch_size)
+        # one table gather a predict step: DeepFM's [V, 1+K] table over all
+        # 39 fields, wide's wide_cat table (its [V, 1] view)
+        check(k1 == batches, f"(c) {name} infer: K1 launched {k1} times for {batches} batches "
+              "of one gather")
+        check(got.shape == (lines,), f"(c) {name} infer: pred.txt shape {got.shape}")
+        err = held_rel(f"(c) {name} infer card vs CPU", got, want, 2e-5)
+        log(f"phase 8 (c) {name} infer: {lines} te lines in {batches} batches in {t_card:.1f} s "
+            f"on {card}, K1 {k1} launches; pred.txt vs a CPU infer max abs diff {err:.3e} "
+            "(held at 2e-5 relative + 1e-6)")
+        with open(te, "rb") as f:
+            first = [next(f) for _ in range(cfg.batch_size)]
+        params = CheckpointManager(cfg.resolved_model_dir()).restore(dev)["params"]
+        # no device-operation count here: see serving_load_phase
+        if wide:
+            ids = WideDeep._offset_ids(torch.from_numpy(parse_csv_lines(first)["cat"]).to(dev))
+            t, bound = serving_k1(f"ladder {name} infer wide_cat batch {cfg.batch_size}",
+                                  params["wide_cat"][:, None], ids, count_ops=False)
+        else:
+            ids, _, _ = parse_libsvm_lines(first, cfg.field_size)
+            t, bound = serving_k1(f"ladder {name} infer batch {cfg.batch_size}", params["fm_wv"],
+                                  torch.from_numpy(ids).to(dev), count_ops=False)
+        launches[name] = (t, bound, k1)
+        del params
+    return launches
+
+
+def serving_load_phase(dev, work, card):
+    """Phase 8: (a), (b) and (c) above. Returns the kernel report's phase
+    and launch counts for K1's rows of phase 8, each at its own shapes:
+    the bench servable's gather with the launches of (a) and (b) together
+    (counts zeroed just before (a), read just after (b)), timed at (a)'s
+    largest batch (256, the largest micro-batch either leg scores), and
+    each ladder row's infer gather with that infer's launches."""
+    t0 = time.perf_counter()
+    SR.reset_launches()
+    fit = latency_fit_leg(card)
+    t_a = time.perf_counter() - t0
+    load_leg(card, fit["servable"])
+    ab = SR.expand_rows.launches
+    largest = fit["batches"][max(fit["batches"])]
+    table = Scorer(fit["servable"], warmup=False, device="cpu").params["fm_wv"].to(dev)
+    ids = torch.from_numpy(np.asarray([i["feat_ids"] for i in largest["instances"]],
+                                      np.int32)).to(dev)
+    # the one-launch count (torch.profiler) is held at phase 4b's gathers,
+    # not at phase 8's: after phase 8's runs in this process the profiler
+    # traced no device operation of the one-launch gather in three
+    # attempts, though the five-launch gather just before it traced
+    # (PERF.md §7)
+    res = {"expand_rows (serving load, DeepFM bench servable)":
+           (*serving_k1(f"bench servable batch {len(ids)}", table, ids, count_ops=False), ab)}
+    del table
+    shutil.rmtree(os.path.dirname(fit["servable"]), ignore_errors=True)
+    t_b = time.perf_counter() - t0 - t_a
+    for name, r in ladder_leg(dev, work, card).items():
+        res[f"expand_rows (infer, zoo ladder {name})"] = r
+    log(f"phase 8: (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) "
+        f"{time.perf_counter() - t0 - t_a - t_b:.1f} s; K1 launches "
+        + ", ".join(f"{k} {r[2]}" for k, r in res.items()))
+    phase = {"t": {k: r[0] for k, r in res.items()}, "bound": {k: r[1] for k, r in res.items()},
+             "bound_by": "bytes", "err": {k: 0.0 for k in res}}
+    return phase, {k: r[2] for k, r in res.items()}
+
+
+def serving_load_only(dev, work, card) -> int:
+    """--only=serving_load: phase 7e's surrogate files (written here as its
+    process writes them), then phase 8 alone; no result line."""
+    try:
+        t0 = time.perf_counter()
+        surrogate_data(work, SURR_TRAIN, SURR_TEST)
+        log(f"surrogate files in {time.perf_counter() - t0:.1f} s")
+        phase, launches = serving_load_phase(dev, work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for name, n in launches.items():
+        ms, plain, lib = phase["t"][name]
+        log(f"row {name}: launches {n}, {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
+            f"bound {phase['bound'][name]:.5f} ms (bytes)")
+    log("phase 8 alone (--only=serving_load): no result line")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke needs a GPU",
@@ -4487,18 +4757,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    t_start = time.perf_counter()
+    card = card_label(dev)
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    PHASE_S["1"] = time.perf_counter() - t_start
 
     t0 = time.perf_counter()
-    logs = build.build_all()
+    logs = timed("2", build.build_all)
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -4510,46 +4777,43 @@ def main() -> int:
     os.makedirs(work)
     if "--only=multihost" in args:
         return multihost_only(dev, work, card)
+    if "--only=serving_load" in args:
+        return serving_load_only(dev, work, card)
     try:
-        kp = kernel_phase(dev)
-        ekp = esmm_kernel_phase(dev)
-        dkp = din_kernel_phase(dev)
-        skp = scatter_kernel_phase(dev)
-        fkp = field_block_kernel_phase(dev)
-        zkp = zoo_kernel_phase(dev)
-        ukp = unfused_kernel_phase(dev)
-        rounding_phase(dev)
-        bkp = bf16_store_kernel_phase(dev)
+        kp = timed("3", kernel_phase, dev)
+        ekp = timed("3", esmm_kernel_phase, dev)
+        dkp = timed("3", din_kernel_phase, dev)
+        skp = timed("3", scatter_kernel_phase, dev)
+        fkp = timed("3", field_block_kernel_phase, dev)
+        zkp = timed("3", zoo_kernel_phase, dev)
+        ukp = timed("3", unfused_kernel_phase, dev)
+        timed("3", rounding_phase, dev)
+        bkp = timed("3", bf16_store_kernel_phase, dev)
         rates = {}  # host-input stage times and CLI examples/s, printed with the bare steps
-        launches = main_path(dev, work, rates)
-        zoo = zoo_main_path(dev, work)
-        lazy = lazy_optimizers_main_path(dev, work, rates)
-        wd_peak = wide_deep_main_path(dev, work, rates)
-        elaunches = esmm_main_path(dev, work, rates)
-        dlaunches = din_main_path(dev, work, rates)
-        flaunches = field_block_main_path(dev, work, rates)
-        mesh = mesh_phase(dev, work, card)
-        multihost = multihost_phase(dev, work, card)
-        presets = presets_path(dev, work)
-        serve_kp, serve_launches = serving_phase(dev, work)
-        bare = bare_steps(dev, profile)
-        ebare = esmm_bare_step(dev, profile)
-        dbare = {sb: din_bare_step(dev, profile, sb) for sb in (False, True)}
-        dbare["dma"] = din_bare_step(dev, profile, False, dma_scatter=True)
-        zbare = {name: zoo_bare_step(dev, name, profile) for name in ZOO}
-        lbare = lazy_bare_steps(dev, profile)
-        wbare = {m: wd_bare_step(dev, profile, m) for m in ("wide_n_deep", "wide")}
-        trajectory(dev)
-        lazy_trajectory(dev)
-        wd_trajectory(dev)
-        zoo_trajectory(dev)
-        esmm_trajectory(dev)
-        din_trajectory(dev)
-        field_block_trajectory(dev)
-        bf16_trajectories(dev)
+        launches = timed("4", main_path, dev, work, rates)
+        zoo = timed("4", zoo_main_path, dev, work)
+        lazy = timed("4", lazy_optimizers_main_path, dev, work, rates)
+        wd_peak = timed("4", wide_deep_main_path, dev, work, rates)
+        elaunches = timed("4", esmm_main_path, dev, work, rates)
+        dlaunches = timed("4", din_main_path, dev, work, rates)
+        flaunches = timed("4", field_block_main_path, dev, work, rates)
+        mesh = timed("6", mesh_phase, dev, work, card)
+        multihost = timed("7", multihost_phase, dev, work, card)
+        presets = timed("4", presets_path, dev, work)
+        serve_kp, serve_launches = timed("4b", serving_phase, dev, work)
+        load_kp, load_launches = timed("8", serving_load_phase, dev, work, card)
+        bare = timed("4", bare_steps, dev, profile)
+        ebare = timed("4", esmm_bare_step, dev, profile)
+        dbare = {sb: timed("4", din_bare_step, dev, profile, sb) for sb in (False, True)}
+        dbare["dma"] = timed("4", din_bare_step, dev, profile, False, True)
+        zbare = {name: timed("4", zoo_bare_step, dev, name, profile) for name in ZOO}
+        lbare = timed("4", lazy_bare_steps, dev, profile)
+        wbare = {m: timed("4", wd_bare_step, dev, profile, m) for m in ("wide_n_deep", "wide")}
+        for traj in (trajectory, lazy_trajectory, wd_trajectory, zoo_trajectory, esmm_trajectory,
+                     din_trajectory, field_block_trajectory, bf16_trajectories):
+            timed("5", traj, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-
     # K1/K2 launches from the DeepFM main path, K3/K4 and K7 from the ESMM
     # one, K5/K6 from the DIN one (K5 at n_out = Su from its --coo_sorted_bwd
     # leg), K8 from the DeepFM --field_blocks one
@@ -4574,6 +4838,10 @@ def main() -> int:
          flaunches),
     ] + [(name, "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164", serve_kp, serve_launches)
          for name in serve_launches]
+    # phase 8's K1 rows: the bench servable under (a) and (b), each ladder
+    # row's infer, each timed at its own table and ids
+    kernels += [(name, "sparse_rows.cu", "tf_repos_tpu/ops/pallas_sparse.py:164", load_kp,
+                 load_launches) for name in load_launches]
     # K1/K2 at the zoo's widths, with the launches of the zoo CLI runs that
     # ran at each width
     zoo_launches = {f"{k} (zoo, {point})": sum(zoo[m][0][k] for m in models)
@@ -4675,6 +4943,9 @@ def main() -> int:
             f"state {bare['store'] / 2**20:.0f} MiB (f32: {bare['store f32'] / 2**20:.0f} MiB); "
             f"wire {bare['wire slim']:.1f} B/example slim, {bare['wire full']:.1f} full; host "
             f"encode {bare['encode ms']:.2f} ms a batch; {res['step']} steps on {card}")
+    for phase in ("1", "2", "3", "4", "4b", "5", "6", "7", "8"):
+        log(f"phase {phase}: {PHASE_S[phase]:.1f} s")
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
-"""Import hygiene of the PyTorch port: the package and chip_smoke.py
-import neither JAX nor anything of the JAX package, checked in a fresh
-interpreter (this test process has JAX loaded already) and by a scan of
-the sources. The scan admits one form of the JAX package's name: a
-``<package>/<file>.py:<line>`` citation of a TPU kernel's source line,
-which chip_smoke.py's kernel report must name; it is a string, never an
-import."""
+"""Import hygiene of the PyTorch port: the package, chip_smoke.py and
+the port's scripts (scripts/torch_*.py) import neither JAX nor anything
+of the JAX package, checked in a fresh interpreter (this test process
+has JAX loaded already) and by a scan of the sources. The scan admits
+one form of the JAX package's name: a ``<package>/<file>.py:<line>``
+citation of a TPU kernel's source line, which chip_smoke.py's kernel
+report must name; it is a string, never an import."""
 
 import ast
+import glob
 import os
 import pkgutil
 import re
@@ -24,6 +25,10 @@ def _modules():
     for m in pkgutil.walk_packages([PKG], prefix="tf_repos_tpu_torch."):
         names.append(m.name)
     return sorted(names)
+
+
+def _scripts():
+    return sorted(glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
 
 
 def _chip_smoke_imports():
@@ -65,13 +70,19 @@ def test_modules_listed():
     for m in ("observability", "tb_events"):
         assert f"tf_repos_tpu_torch.utils.{m}" in mods
     assert len(mods) >= 20
+    assert [os.path.basename(p) for p in _scripts()] == [
+        "torch_bench_serving.py", "torch_bench_serving_load.py", "torch_gate_flips.py",
+        "torch_kernel_ab.py", "torch_zoo_auc.py"]
 
 
 def test_import_leaves_jax_out():
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {_modules() + _chip_smoke_imports()!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({_scripts()!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'_script{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'tf_repos_tpu' or m.startswith('tf_repos_tpu.'))\n"
         "print('BAD', bad)\n"
@@ -90,6 +101,7 @@ def _sources():
             if f.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield from _scripts()
 
 
 @pytest.mark.parametrize(

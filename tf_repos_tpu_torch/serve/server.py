@@ -71,6 +71,7 @@ class MicroBatcher:
         # full batches at the default 512); 0 disables the cap
         self.max_queued = max_queued
         self.shed = 0  # rejected requests, surfaced via GET /stats
+        self.scored = 0  # micro-batches scored since start (each one scorer.score)
         self._queued = 0
         self._qlock = threading.Lock()
         self.q: "queue.Queue[_Pending]" = queue.Queue()
@@ -130,6 +131,7 @@ class MicroBatcher:
                 rec["score_ms"] = (time.perf_counter() - t0) * 1e3
                 rec["n"] = len(flat)
                 self.timings.append(rec)
+                self.scored += 1
                 if len(self.timings) > 512:
                     del self.timings[:256]
                 off = 0

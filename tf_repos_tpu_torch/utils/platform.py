@@ -3,6 +3,8 @@ the CPU by name. There is no quiet switch to the CPU."""
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -16,3 +18,18 @@ def resolve_device(name: str = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
     return dev
+
+
+def card_label(dev: torch.device) -> str:
+    """What a printed time runs on: the card's name and power limit as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    gives them (the first card's line), or ``cpu``."""
+    if dev.type == "cpu":
+        return "cpu"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]

@@ -2660,20 +2660,18 @@ def profile_step(label: str, run, trace: str):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # kernel rows only: an operator row repeats the time of the kernels it
-    # launched
+    # launched. No busy share: summed rows count concurrent streams twice
+    # (the benchmark's device_idle_share.train takes their union)
     rows = []
-    busy = 0.0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         dev_us = e.self_device_time_total
         if dev_us > 0:
             rows.append((dev_us, e.key, e.count))
-            busy += dev_us
     rows.sort(reverse=True)
-    log(f"profile {label}: 10 steps, {wall:.2f} ms wall, device busy {busy / 1e3:.2f} ms "
-        f"({100 * busy / 1e3 / wall:.1f}%), {sum(r[2] for r in rows) / 10:.1f} device "
-        "operations per step" if rows else "profile: no device time recorded")
+    log(f"profile {label}: 10 steps, {wall:.2f} ms wall, {sum(r[2] for r in rows) / 10:.1f} "
+        "device operations per step" if rows else "profile: no device time recorded")
     for us, key, cnt in rows[:25]:
         log(f"profile:   {us / 10 / 1e3:8.4f} ms/step  x{cnt / 10:<4.1f} {key[:90]}")
     if trace:
@@ -3776,7 +3774,9 @@ def profile_cli(dev, work, card):
     """--profile_steps=2 on the single-device DeepFM CLI at the benchmark
     point, a process of its own (this one's later torch.profiler counts
     stay as they were): the trace under <model_dir>/profile must name the
-    hand-written K1 and K2 kernels (their CUDA function names)."""
+    hand-written K1 and K2 kernels (their CUDA function names) and the
+    port's step spans and input wait, and the run logs the spans' device
+    ms a step."""
     argv = [f"--{k}={v}" for k, v in WIDTH.items()] + [
         "--task_type=train", "--num_epochs=1", "--log_steps=7", f"--data_dir={work}/data",
         f"--model_dir={work}/profiled/", "--dt_dir=smoke", "--eval_throttle_secs=0",
@@ -3793,6 +3793,13 @@ def profile_cli(dev, work, card):
     for name in ("expand_rows_kernel", "accumulate_rows_kernel"):
         n = sum(name in k for k in kernels)
         check(n >= 2, f"the --profile_steps trace names {name} {n} times in 2 steps")
+    # the port's spans over them, and the host input's wait
+    names = {e.get("name", "") for e in events}
+    for name in ("step.forward", "step.backward", "step.update", "input.wait"):
+        check(name in names, f"the --profile_steps trace has no {name} span")
+    spans = [ln for ln in r.stdout.splitlines() if ln.startswith("INFO: spans")]
+    check(len(spans) == 1, f"--profile_steps logged {len(spans)} span lines")
+    log(spans[0])
     log(f"--profile_steps=2 on {card}: {os.path.basename(traces[0])}, {len(kernels)} kernel "
         f"events, expand_rows_kernel x{sum('expand_rows_kernel' in k for k in kernels)}, "
         f"accumulate_rows_kernel x{sum('accumulate_rows_kernel' in k for k in kernels)}")

@@ -3,7 +3,8 @@ against the JAX package's: metrics.jsonl and the TensorBoard records of
 one CLI run from the same weights on the same files equal JAX's but for
 wall times (and the rate, which is one); the event files read back with
 the tensorboard package's own reader; --profile_steps writes a
-torch.profiler trace under <model_dir>/profile; --check_numerics raises
+torch.profiler trace under <model_dir>/profile, the port's spans in it,
+and logs their device ms a step; --check_numerics raises
 FloatingPointError where JAX's raises (a feature value past the f32
 range: the FM's inf - inf makes the NaN), on one process and on a mesh."""
 
@@ -25,7 +26,7 @@ from tf_repos_tpu_torch.data.synthetic import write_synthetic_libsvm
 from tf_repos_tpu_torch.train.checkpoint import CheckpointManager
 from tf_repos_tpu_torch.train.harness import Harness
 from tf_repos_tpu_torch.utils.convert import params_from_jax
-from tf_repos_tpu_torch.utils.observability import MetricsWriter
+from tf_repos_tpu_torch.utils.observability import RECORDER, MetricsWriter
 from tf_repos_tpu_torch.utils.tree import tree_leaves
 
 FLAGS = ["--model=DeepFM", "--feature_size=400", "--field_size=39", "--embedding_size=4",
@@ -106,7 +107,7 @@ def test_metrics_writer_emits_both_formats(tmp_path):
     assert abs(sc["train/loss"][0][1] - 0.69) < 1e-6 and abs(sc["eval/auc"][0][1] - 0.801) < 1e-6
 
 
-def test_profile_trace_written(tmp_path, data_dir):
+def test_profile_trace_written(tmp_path, data_dir, capsys):
     argv = [*FLAGS, f"--data_dir={data_dir}", f"--model_dir={tmp_path}/m/", "--device=cpu",
             "--profile_steps=2", "--profile_start_step=1", "--eval_throttle_secs=0",
             "--sparse_table_update=true", "--fused_table=true", "--pallas_expand=true"]
@@ -118,6 +119,13 @@ def test_profile_trace_written(tmp_path, data_dir):
     # the window's steps ran under it: the row kernels' plain versions
     names = {e.get("name", "") for e in events}
     assert any("index_select" in n for n in names) and any("index_add" in n for n in names)
+    # the port's spans over them, and the host input's wait between steps
+    assert {"step.forward", "step.backward", "step.update", "input.wait"} <= names
+    # the exit's line of device ms a step, then an empty recorder
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("INFO: spans")]
+    assert len(lines) == 1
+    assert all(f" {n} " in lines[0] for n in ("step.forward", "model.embed.bwd", "input.wait"))
+    assert RECORDER.records() == []
 
 
 def _poison(data_dir):

@@ -24,6 +24,7 @@ from tf_repos_tpu_torch.ops.embedding import (
     fused_linear_lookup,
     fused_linear_table_init,
 )
+from tf_repos_tpu_torch.utils.observability import span
 
 
 class DeepFM(CtrModel):
@@ -60,36 +61,42 @@ class DeepFM(CtrModel):
         vals = batch["feat_vals"].reshape(-1, cfg.field_size)
 
         sf = cfg.static_fields
-        if sf > 0 and (
-            lookup is dense_lookup or getattr(lookup, "static_slice_ok", False)
-        ):
-            # Criteo layout: fields 0..sf-1 carry constant ids 1..sf, so
-            # their rows come from a slice and only B*(F-sf) rows go
-            # through the lookup
-            table = params["fm_wv"]
-            srows = table[1 : 1 + sf]  # [sf,1+K]
-            y_w_s = vals[:, :sf] @ srows[:, 0]
-            emb_s = srows[None, :, 1:] * vals[:, :sf, None]  # [B,sf,K]
-            y_w_d, emb_d = fused_linear_lookup(table, ids[:, sf:], vals[:, sf:], lookup)
-            y_w = y_w_s + y_w_d
-            emb = torch.cat([emb_s, emb_d], dim=1)
-        else:
-            y_w, emb = fused_linear_lookup(params["fm_wv"], ids, vals, lookup)
-        y_v = I.fm_second_order(emb)
+        with span("model.embed") as s:
+            if sf > 0 and (
+                lookup is dense_lookup or getattr(lookup, "static_slice_ok", False)
+            ):
+                # Criteo layout: fields 0..sf-1 carry constant ids 1..sf, so
+                # their rows come from a slice and only B*(F-sf) rows go
+                # through the lookup
+                table = params["fm_wv"]
+                srows = table[1 : 1 + sf]  # [sf,1+K]
+                y_w_s = vals[:, :sf] @ srows[:, 0]
+                emb_s = srows[None, :, 1:] * vals[:, :sf, None]  # [B,sf,K]
+                y_w_d, emb_d = fused_linear_lookup(table, ids[:, sf:], vals[:, sf:], lookup)
+                y_w = y_w_s + y_w_d
+                emb = torch.cat([emb_s, emb_d], dim=1)
+            else:
+                y_w, emb = fused_linear_lookup(params["fm_wv"], ids, vals, lookup)
+        s.backward_half((y_w, emb), params["fm_wv"])
+        with span("model.fm", adjacent=True) as s:
+            y_v = I.fm_second_order(emb)
+        s.backward_half(y_v, emb)
 
-        deep_in = emb.reshape(emb.shape[0], -1)
-        h, mlp_state = T.apply_mlp(
-            params["mlp"],
-            state["mlp"],
-            deep_in,
-            keep_probs=cfg.dropout_list,
-            train=train,
-            generator=generator,
-            batch_norm=cfg.batch_norm,
-            bn_decay=cfg.batch_norm_decay,
-            compute_dtype=cfg.tower_dtype,
-        )
-        y_d = T.dense(params["out"], h)[:, 0]
+        with span("model.towers", adjacent=True) as s:
+            deep_in = emb.reshape(emb.shape[0], -1)
+            h, mlp_state = T.apply_mlp(
+                params["mlp"],
+                state["mlp"],
+                deep_in,
+                keep_probs=cfg.dropout_list,
+                train=train,
+                generator=generator,
+                batch_norm=cfg.batch_norm,
+                bn_decay=cfg.batch_norm_decay,
+                compute_dtype=cfg.tower_dtype,
+            )
+            y_d = T.dense(params["out"], h)[:, 0]
+        s.backward_half(y_d, (deep_in, params["mlp"], params["out"]))
 
         logits = params["fm_b"][0] + y_w + y_v + y_d
         return {"logits": logits, "prob": torch.sigmoid(logits)}, {"mlp": mlp_state}

@@ -51,6 +51,7 @@ from tf_repos_tpu_torch.models.base import (
 )
 from tf_repos_tpu_torch.ops import towers as T
 from tf_repos_tpu_torch.ops.embedding import coo_pool, dense_lookup, glorot_normal_init
+from tf_repos_tpu_torch.utils.observability import span
 
 USER_FIELDS = ("u_cat", "u_shop", "u_brand", "u_int")
 
@@ -127,11 +128,13 @@ class DIN(CtrModel):
         scalar_off = off
         off += 3
         parts.append(batch["a_intids"])
-        rows = lookup(emb_t, torch.cat(parts, dim=1))
-        common = rows[:, :fc]
-        a_cat, a_shop, a_brand = (rows[:, scalar_off + i] for i in range(3))
-        int_mask = (batch["a_intids"] > 0).to(common.dtype)
-        a_int = torch.einsum("bpk,bp->bk", rows[:, off:], int_mask)  # sum combiner
+        with span("model.embed") as s:
+            rows = lookup(emb_t, torch.cat(parts, dim=1))
+            common = rows[:, :fc]
+            a_cat, a_shop, a_brand = (rows[:, scalar_off + i] for i in range(3))
+            int_mask = (batch["a_intids"] > 0).to(common.dtype)
+            a_int = torch.einsum("bpk,bp->bk", rows[:, off:], int_mask)  # sum combiner
+        s.backward_half((rows, common, a_cat, a_shop, a_brand, a_int), emb_t)
         new_state: State = {}
 
         if coo:
@@ -175,13 +178,16 @@ class DIN(CtrModel):
             if cfg.attention_pooling:
                 new_state["att_mlp"] = att_state
 
-        x = torch.cat([common.reshape(b, -1), *pooled, a_cat, a_shop, a_brand, a_int], dim=1)
-        h, new_state["mlp"] = T.apply_mlp(
-            params["mlp"], state["mlp"], x, keep_probs=cfg.dropout_list, train=train,
-            generator=generator, batch_norm=cfg.batch_norm, bn_decay=cfg.batch_norm_decay,
-            compute_dtype=cfg.tower_dtype,
-        )
-        logits = T.dense(params["out"], h)[:, 0]
+        with span("model.towers", adjacent=coo and cfg.attention_pooling) as s:
+            x = torch.cat([common.reshape(b, -1), *pooled, a_cat, a_shop, a_brand, a_int], dim=1)
+            h, new_state["mlp"] = T.apply_mlp(
+                params["mlp"], state["mlp"], x, keep_probs=cfg.dropout_list, train=train,
+                generator=generator, batch_norm=cfg.batch_norm, bn_decay=cfg.batch_norm_decay,
+                compute_dtype=cfg.tower_dtype,
+            )
+            logits = T.dense(params["out"], h)[:, 0]
+        s.backward_half(logits, (common, pooled, a_cat, a_shop, a_brand, a_int,
+                                 params["mlp"], params["out"]))
         return {"logits": logits, "prob": torch.sigmoid(logits)}, new_state
 
     def _coo_attention(self, params, state, batch, lookup, emb_t, idxf, destf, wf, ad_all, b,
@@ -193,53 +199,59 @@ class DIN(CtrModel):
         seg_pool = getattr(lookup, "seg_pool", None)
         use_sorted = seg_pool is not None and MHC_CNT in batch
         sbe = getattr(lookup, "sorted_bwd_expand", None)
-        if use_sorted and sbe is not None and MHC_PERM in batch:
-            # --coo_sorted_bwd: the lookup's backward rides the idx-sorted
-            # stream (K5 per run of equal id instead of K2's atomics)
-            raw = sbe(emb_t, idxf, batch[MHC_PERM].reshape(-1), batch[MHC_CIDX].reshape(-1),
-                      batch[MHC_SROWS].reshape(-1), batch[MHC_CNT].sum())
-        else:
-            raw = lookup(emb_t, idxf)
-        d_rows = raw.to(dtype) * wf[:, None].to(dtype)
-        gc = b * ng
-        if use_sorted:
-            # the compact segment stream: one compact row per non-empty
-            # (group, row) bag, in the packer's group-major order
-            cnt = batch[MHC_CNT].reshape(-1)
-            nz = cnt > 0
-            c_ix = torch.clamp(torch.cumsum(nz.to(torch.int32), 0, dtype=torch.int32) - 1, min=0)
-            if MHC_CDEST in batch:
-                cdest = batch[MHC_CDEST].reshape(-1)
+        with span("model.embed") as s:
+            if use_sorted and sbe is not None and MHC_PERM in batch:
+                # --coo_sorted_bwd: the lookup's backward rides the idx-sorted
+                # stream (K5 per run of equal id instead of K2's atomics)
+                raw = sbe(emb_t, idxf, batch[MHC_PERM].reshape(-1), batch[MHC_CIDX].reshape(-1),
+                          batch[MHC_SROWS].reshape(-1), batch[MHC_CNT].sum())
             else:
-                # rebuilt on the device, padded with 0 as the packer pads;
-                # output_size keeps it free of a host sync
-                m = idxf.shape[0]
-                cdest = torch.repeat_interleave(
-                    torch.cat([c_ix, c_ix.new_zeros(1)]),
-                    torch.cat([cnt, (m - cnt.sum()).to(cnt.dtype).reshape(1)]),
-                    output_size=m,
-                )
-            # queries in compact rows: each bag's ad embedding at its
-            # compact row; empty bags land in the spare row gc, cut off
-            q_fm = ad_all.transpose(0, 1).reshape(gc, -1)  # group-major
-            tgt = torch.where(nz, c_ix, torch.full_like(c_ix, gc))
-            q_c = q_fm.new_zeros((gc + 1, q_fm.shape[1])).index_put((tgt,), q_fm)[:gc]
-            a_sel = lookup.seg_select(q_c, cdest)
-        else:
-            a_sel = ad_all.reshape(gc, -1)[destf]
-        wgt, att_state = self._att_mlp(
-            params, state["att_mlp"], torch.cat([d_rows, d_rows - a_sel, a_sel], dim=1),
-            train=train, generator=generator,
-        )
-        weighted = d_rows * wgt.to(d_rows.dtype)[:, None]
-        # f32 accumulation in both forms
+                raw = lookup(emb_t, idxf)
+            d_rows = raw.to(dtype) * wf[:, None].to(dtype)
+        s.backward_half(d_rows, emb_t)
+        gc = b * ng
+        with span("model.attention", count=lambda: idxf.shape[0], adjacent=True) as s:
+            if use_sorted:
+                # the compact segment stream: one compact row per non-empty
+                # (group, row) bag, in the packer's group-major order
+                cnt = batch[MHC_CNT].reshape(-1)
+                nz = cnt > 0
+                c_ix = torch.clamp(torch.cumsum(nz.to(torch.int32), 0, dtype=torch.int32) - 1, min=0)
+                if MHC_CDEST in batch:
+                    cdest = batch[MHC_CDEST].reshape(-1)
+                else:
+                    # rebuilt on the device, padded with 0 as the packer pads;
+                    # output_size keeps it free of a host sync
+                    m = idxf.shape[0]
+                    cdest = torch.repeat_interleave(
+                        torch.cat([c_ix, c_ix.new_zeros(1)]),
+                        torch.cat([cnt, (m - cnt.sum()).to(cnt.dtype).reshape(1)]),
+                        output_size=m,
+                    )
+                # queries in compact rows: each bag's ad embedding at its
+                # compact row; empty bags land in the spare row gc, cut off
+                q_fm = ad_all.transpose(0, 1).reshape(gc, -1)  # group-major
+                tgt = torch.where(nz, c_ix, torch.full_like(c_ix, gc))
+                q_c = q_fm.new_zeros((gc + 1, q_fm.shape[1])).index_put((tgt,), q_fm)[:gc]
+                a_sel = lookup.seg_select(q_c, cdest)
+            else:
+                a_sel = ad_all.reshape(gc, -1)[destf]
+            wgt, att_state = self._att_mlp(
+                params, state["att_mlp"], torch.cat([d_rows, d_rows - a_sel, a_sel], dim=1),
+                train=train, generator=generator,
+            )
+            weighted = d_rows * wgt.to(d_rows.dtype)[:, None]
+            # f32 accumulation in both forms
+            if use_sorted:
+                pooled_c = seg_pool(weighted, cdest, gc)  # [gc, K] f32, compact rows
+                att_pooled = torch.where(nz[:, None], pooled_c[c_ix], 0.0).reshape(ng, b, -1).to(dtype)
+            else:
+                att_pooled = torch.zeros((gc, d_rows.shape[-1]), dtype=torch.float32,
+                                         device=d_rows.device).index_add(0, destf, weighted.float())
+                att_pooled = att_pooled.reshape(b, ng, -1).to(dtype)
+        s.backward_half(att_pooled, (d_rows, ad_all, params["att_mlp"], params["att_out"]))
         if use_sorted:
-            pooled_c = seg_pool(weighted, cdest, gc)  # [gc, K] f32, compact rows
-            att_pooled = torch.where(nz[:, None], pooled_c[c_ix], 0.0).reshape(ng, b, -1).to(dtype)
             return [att_pooled[i] for i in range(ng)], att_state
-        att_pooled = torch.zeros((gc, d_rows.shape[-1]), dtype=torch.float32,
-                                 device=d_rows.device).index_add(0, destf, weighted.float())
-        att_pooled = att_pooled.reshape(b, ng, -1).to(dtype)
         return [att_pooled[:, i] for i in range(ng)], att_state
 
     def l2_loss(self, params: Params) -> torch.Tensor:

@@ -153,7 +153,12 @@ from tf_repos_tpu_torch.train import loop as L
 from tf_repos_tpu_torch.train import sparse as SP
 from tf_repos_tpu_torch.train.checkpoint import CheckpointManager, clear_existing_model
 from tf_repos_tpu_torch.train.optimizers import make_optimizer
-from tf_repos_tpu_torch.utils.observability import MetricsWriter, enable_nan_checks, profile_trace
+from tf_repos_tpu_torch.utils.observability import (
+    MetricsWriter,
+    enable_nan_checks,
+    profile_trace,
+    span,
+)
 from tf_repos_tpu_torch.utils.platform import resolve_device
 from tf_repos_tpu_torch.utils.tree import tree_map
 
@@ -700,7 +705,12 @@ class Harness:
                 losses.append(loss)
             return state
 
-        for batch in self._dataset("tr", shuffle=True, epochs=cfg.num_epochs):
+        batches = iter(self._dataset("tr", shuffle=True, epochs=cfg.num_epochs))
+        while True:
+            with span("input.wait"):  # the host input's wait, in a profile's window
+                batch = next(batches, None)
+            if batch is None:
+                break
             if K == 1 and cfg.profile_steps and step == cfg.profile_start_step:
                 profiler = profile_trace(os.path.join(self.model_dir, "profile"), self.device)
                 profiler.__enter__()

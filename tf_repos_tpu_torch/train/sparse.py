@@ -37,6 +37,7 @@ from tf_repos_tpu_torch.data.sparse_batch import UIDS_PREFIX
 from tf_repos_tpu_torch.ops.embedding import dense_lookup
 from tf_repos_tpu_torch.ops.rounding import maybe_round
 from tf_repos_tpu_torch.ops.row_scatter import dma_row_scatter
+from tf_repos_tpu_torch.utils.observability import span
 from tf_repos_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 
@@ -439,6 +440,12 @@ def init_opt_state(model, tx_dense, sopt: SparseRowOpt, params) -> Dict[str, Any
     return {"dense": tx_dense.init(rest), "sparse": sparse}
 
 
+def batch_rows(batch) -> int:
+    """A device batch's rows (its label; y where the slim wire dropped
+    the alias)."""
+    return (batch["label"] if "label" in batch else batch["y"]).shape[0]
+
+
 def build_sparse_train_step(model, tx_dense, sopt: SparseRowOpt, lookup=None):
     """(params, opt_state, mstate, batch, generator, sr_generator) ->
     (params, opt_state, mstate, loss), updating params and opt_state in
@@ -453,28 +460,34 @@ def build_sparse_train_step(model, tx_dense, sopt: SparseRowOpt, lookup=None):
     lookup = lookup or dense_lookup
 
     def step(params, opt_state, mstate, batch, generator=None, sr_generator=None):
-        tables, rest = split_params(params, slot_names)
-        u = {t: batch[UIDS_PREFIX + t] for t in slot_names}
-        su = {t: sopt.gather(opt_state["sparse"][t], u[t]) for t in slot_names}
-        # the fused store's rows carry m and v beside w; a plain store's
-        # are the table's rows as they are (LR's 1-D table gives [S])
-        rows = {
-            t: (su[t][:, : tables[t].shape[-1]] if sopt.fused else su[t])
-            .detach().requires_grad_(True)
-            for t in slot_names
-        }
-        rest_leaves = tree_leaves(rest)
-        alias = [p.detach().requires_grad_(True) for p in rest_leaves]
-        p = tree_unflatten(rest, alias)
-        p.update(rows)  # the model sees a small [S,K] "table"
-        loss, (_, new_mstate) = model.loss(
-            p, mstate, batch, train=True, generator=generator, lookup=lookup
-        )
-        grads = torch.autograd.grad(loss, [rows[t] for t in slot_names] + alias)
-        g_rows, g_rest = grads[: len(slot_names)], list(grads[len(slot_names):])
-        tx_dense.update_(rest_leaves, g_rest, opt_state["dense"])
-        for i, t in enumerate(slot_names):
-            params[t] = sopt.apply(opt_state["sparse"][t], su[t], u[t], g_rows[i], sr_generator)
+        with span("step", count=lambda: batch_rows(batch)):
+            tables, rest = split_params(params, slot_names)
+            u = {t: batch[UIDS_PREFIX + t] for t in slot_names}
+            with span("step.gather"):
+                su = {t: sopt.gather(opt_state["sparse"][t], u[t]) for t in slot_names}
+            # the fused store's rows carry m and v beside w; a plain store's
+            # are the table's rows as they are (LR's 1-D table gives [S])
+            rows = {
+                t: (su[t][:, : tables[t].shape[-1]] if sopt.fused else su[t])
+                .detach().requires_grad_(True)
+                for t in slot_names
+            }
+            rest_leaves = tree_leaves(rest)
+            alias = [p.detach().requires_grad_(True) for p in rest_leaves]
+            p = tree_unflatten(rest, alias)
+            p.update(rows)  # the model sees a small [S,K] "table"
+            with span("step.forward", adjacent=True):
+                loss, (_, new_mstate) = model.loss(
+                    p, mstate, batch, train=True, generator=generator, lookup=lookup
+                )
+            with span("step.backward", adjacent=True):
+                grads = torch.autograd.grad(loss, [rows[t] for t in slot_names] + alias)
+            g_rows, g_rest = grads[: len(slot_names)], list(grads[len(slot_names):])
+            with span("step.update", adjacent=True,
+                      count=lambda: {t: u[t].shape[0] for t in slot_names}):
+                tx_dense.update_(rest_leaves, g_rest, opt_state["dense"])
+                for i, t in enumerate(slot_names):
+                    params[t] = sopt.apply(opt_state["sparse"][t], su[t], u[t], g_rows[i], sr_generator)
         return params, opt_state, new_mstate, loss.detach()
 
     return step

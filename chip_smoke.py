@@ -11,6 +11,8 @@
                                                    # paths' files itself; no result line)
     python3 chip_smoke.py --only=serving_load      # phase 8 alone (writes phase 7e's
                                                    # surrogate itself; no result line)
+    python3 chip_smoke.py --only=att_unit          # the fused attention unit alone
+                                                   # (phase 3; no result line)
 
 Four main paths, each driven through the CLI with every launch counter
 set to 0 just before and read just after, then serving from their
@@ -18,7 +20,8 @@ checkpoints (K1 over the whole table, its counter likewise): DeepFM (the lazy-sp
 on K1 expand_rows / K2 accumulate_rows), ESMM with --mh_coo
 --dma_scatter (which adds K3 coo_pool_rows / K4 coo_accumulate_rows and
 the K7 dma_row_scatter write-back), DIN attention with --mh_coo (K1, K2,
-K5 sorted_segsum, K6 sorted_expand; with --coo_sorted_bwd K5 also takes
+K5 sorted_segsum, K6 sorted_expand, and the fused attention unit of
+ops/att_unit.py once each way a step; with --coo_sorted_bwd K5 also takes
 the COO lookup's backward) and DeepFM's dense step with --field_blocks
 (K8 field_block_scatter); after the DeepFM one, the libsvm zoo (LR,
 FNN, IPNN, OPNN, NFM, AFM, DCN, DeepMVM) at its published widths on the
@@ -350,6 +353,7 @@ from tf_repos_tpu_torch.data.synthetic import (  # noqa: E402
     write_synthetic_libsvm,
 )
 from tf_repos_tpu_torch.models import create_model  # noqa: E402
+from tf_repos_tpu_torch.ops import att_unit as AU  # noqa: E402
 from tf_repos_tpu_torch.ops import build  # noqa: E402
 from tf_repos_tpu_torch.ops import coo_pool as CP  # noqa: E402
 from tf_repos_tpu_torch.ops import field_block as FB  # noqa: E402
@@ -357,6 +361,7 @@ from tf_repos_tpu_torch.ops import rounding as RD  # noqa: E402
 from tf_repos_tpu_torch.ops import row_scatter as RS  # noqa: E402
 from tf_repos_tpu_torch.ops import sorted_seg as SG  # noqa: E402
 from tf_repos_tpu_torch.ops import sparse_rows as SR  # noqa: E402
+from tf_repos_tpu_torch.ops import towers as T  # noqa: E402
 from tf_repos_tpu_torch.serve import predict_proto as PP  # noqa: E402
 from tf_repos_tpu_torch.serve.scorer import Scorer  # noqa: E402
 from tf_repos_tpu_torch.serve.server import PredictionServer  # noqa: E402
@@ -1179,6 +1184,133 @@ def din_kernel_phase(dev):
     return {"t": t, "bound": bound, "bound_by": "bytes", "err": err}
 
 
+BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+ATT_W = 256  # DIN's attention width (DIN.py's default, the benchmark's din_aliccp)
+
+
+def att_unit_work(n, k, w):
+    """(forward, backward) least bytes and FLOPs of the attention unit over
+    n slots: u and a read and the weight written; u, a, the weight's
+    gradient and the weight read, du and da written. FLOPs: the first
+    layer's GEMM and the output dot forward, twice both backward (the
+    backward's recompute of the first layer is the design's, not the
+    model's, and is not counted)."""
+    fwd_flops = 2 * n * 3 * k * w + 2 * n * w
+    return (2 * n * k * 4 + n * 4, fwd_flops), (4 * n * k * 4 + 2 * n * 4, 2 * fwd_flops)
+
+
+def host_us(fn, xs, calls: int = 300) -> float:
+    """Host microseconds of a forward and backward of fn over the first 256
+    rows of xs[0] and xs[1] (the card's share of such a call is a few
+    microseconds), synchronized once after the calls."""
+    small = [(x[:256] if i < 2 else x).detach().clone().requires_grad_(True)
+             for i, x in enumerate(xs)]
+
+    def once():
+        y = fn(*small)
+        return torch.autograd.grad(y, small, torch.ones_like(y))
+
+    for _ in range(10):
+        once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        once()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def att_unit_point(dev, label, n, k, m_live, gen):
+    """The fused unit against att_unit_plain at one point (the forward
+    weight per slot to a quarter of one bf16 ulp of sum_c |w2_c h_c|, each
+    gradient normwise to one bf16 ulp, as tests/test_torch_att_unit.py),
+    then each alone and the two compositions timed. Returns (ms, plain ms,
+    bound ms, bound_by, max abs weight gap)."""
+    mlp, _ = T.init_mlp(None, 3 * k, [ATT_W])
+    out = T.init_dense(None, ATT_W, 1)
+    dense = mlp["layers"][0]["dense"]
+    dense["b"] = 0.1 * torch.randn(ATT_W)
+    leaves = [x.to(dev) for x in (dense["w"], dense["b"], out["w"], out["b"])]
+    live = (torch.arange(n, device=dev) < m_live)[:, None]
+    # d = w * emb is 0 on the COO padding slots, as in the step
+    u = torch.where(live, torch.randn((n, k), generator=gen, device=dev), 0.0)
+    a = torch.randn((n, k), generator=gen, device=dev)
+    gw = torch.randn((n,), generator=gen, device=dev)
+
+    def plain(u, a, w1, b1, w2, b2):
+        m = {"layers": [{"dense": {"w": w1, "b": b1}}]}
+        return AU.att_unit_plain(m, {"layers": [{}]}, {"w": w2, "b": b2}, u, a, keep_probs=[1.0],
+                                 train=True, generator=None, compute_dtype="bfloat16")[0]
+
+    xs = [t.detach().clone().requires_grad_(True) for t in (u, a, *leaves)]
+
+    def both(fn):
+        y = fn(*xs)
+        return y, torch.autograd.grad(y, xs, gw)
+
+    y1, g1 = both(AU.att_unit)
+    y0, g0 = both(plain)
+    torch.cuda.synchronize()
+    _, _, h = AU.first_layer(u, a, leaves[0])
+    scale = (torch.relu(h + leaves[1]) * leaves[2][:, 0]).abs().sum(1)
+    del h
+    gap = (y1 - y0).detach().abs()
+    check(bool((gap <= 0.25 * 2.0 ** -8 * scale + 1e-6).all()),
+          f"att_unit {label}: weight differs, max abs {float(gap.max())}")
+    rel = {}
+    for name, x0, x1 in zip(("du", "da", "dw1", "db1", "dw2", "db2"), g0, g1):
+        ref = float(torch.linalg.vector_norm(x0))
+        rel[name] = float(torch.linalg.vector_norm(x1 - x0)) / max(ref, 1e-30)
+        check(rel[name] <= 2.0 ** -8, f"att_unit {label}: {name} differs, normwise {rel[name]:.3e}")
+    s = y1.detach()
+    fwd = cuda_ms(lambda: AU.att_unit_forward(u, a, *leaves))
+    bwd = cuda_ms(lambda: AU.att_unit_backward(gw, u, a, s, *leaves[:3]))
+    with torch.no_grad():
+        plain_fwd = cuda_ms(lambda: plain(u, a, *leaves))
+    fused_step = cuda_ms(lambda: both(AU.att_unit))
+    plain_step = cuda_ms(lambda: both(plain))
+    host = {"fused": host_us(AU.att_unit, xs), "plain": host_us(plain, xs)}
+    (fb, ff), (bb, bf) = att_unit_work(n, k, ATT_W)
+    bounds = {"forward": (fb / HBM_BYTES_PER_S, ff / BF16_FLOPS),
+              "backward": (bb / HBM_BYTES_PER_S, bf / BF16_FLOPS)}
+    bound = sum(max(b) for b in bounds.values()) * 1e3
+    by = "bytes" if all(b[0] >= b[1] for b in bounds.values()) else "FLOPs"
+    log(f"kernel att_unit {label} (N={n}, {m_live} live, K={k}, W={ATT_W}): forward {fwd:.4f} ms, "
+        f"backward (with its reduce) {bwd:.4f} ms; bound forward "
+        f"{max(bounds['forward']) * 1e3:.4f} ms ({fb / 1e6:.1f} MB, {ff / 1e9:.1f} GFLOP), backward "
+        f"{max(bounds['backward']) * 1e3:.4f} ms ({bb / 1e6:.1f} MB, {bf / 1e9:.1f} GFLOP), "
+        f"{100 * bound / (fwd + bwd):.1f}% of it; forward + backward through autograd: fused "
+        f"{fused_step:.4f} ms, plain composition {plain_step:.4f} ms (its forward alone "
+        f"{plain_fwd:.4f} ms); host us a forward + backward at 256 slots: fused "
+        f"{host['fused']:.1f}, plain {host['plain']:.1f}; weight max abs gap "
+        f"{float(gap.max()):.3e}, gradients normwise "
+        + ", ".join(f"{k2} {v:.2e}" for k2, v in rel.items()))
+    return fwd + bwd, plain_step, bound, by, float(gap.max())
+
+
+def att_unit_kernel_phase(dev):
+    """The fused attention unit alone: at the smoke's DIN point (the COO
+    bucket of one published Ali-CCP batch, K=16, the DIN main path's
+    width) and at the benchmark cell's (N=1,572,864, K=32)."""
+    pt = din_point(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t, bound, by, err = {}, {}, {}, {}
+    points = {"att_unit": ("at the DIN point", pt["m"], pt["k"], pt["m_live"]),
+              "att_unit (benchmark point)": ("at the benchmark point", 1_572_864, 32, 1_372_160)}
+    for name, (label, n, k, m_live) in points.items():
+        ms, plain, bound[name], by[name], err[name] = att_unit_point(dev, label, n, k, m_live, gen)
+        t[name] = (ms, plain, None)
+    return {"t": t, "bound": bound, "bound_by": by, "err": err}
+
+
+def att_unit_only(dev) -> int:
+    """--only=att_unit: the fused attention unit's phase alone; no result
+    line."""
+    att_unit_kernel_phase(dev)
+    log("the attention unit alone (--only=att_unit): no result line")
+    return 0
+
+
 def k1_k2_point(out, label, what, store, k, idx, s, gen):
     """K1 and K2 at one lookup point, their entries "expand_rows (label)" and
     "accumulate_rows (label)" added to ``out``: the table is the [S, K]
@@ -1670,7 +1802,7 @@ def din_cli(argv, steps_min, label, rates=None):
     """One DIN CLI run with every launch counter zeroed just before and
     read just after; returns (result, launches). rates: where a training
     run puts its CLI examples/s under ``label``."""
-    for mod in (SR, CP, SG):
+    for mod in (SR, CP, SG, AU):
         mod.reset_launches()
     t0 = time.perf_counter()
     with StepClock() as clock:
@@ -1679,7 +1811,8 @@ def din_cli(argv, steps_min, label, rates=None):
     wall = time.perf_counter() - t0
     launches = {f.__name__: f.launches for f in (SR.expand_rows, SR.accumulate_rows,
                                                 CP.coo_pool_rows, CP.coo_accumulate_rows,
-                                                SG.sorted_segsum, SG.sorted_expand)}
+                                                SG.sorted_segsum, SG.sorted_expand,
+                                                AU.att_unit_forward, AU.att_unit_backward)}
     steps = res.get("step", 0)
     per = {n: c / max(steps, 1) for n, c in launches.items()}
     rate = ""
@@ -1714,7 +1847,17 @@ def din_main_path(dev, work, rates):
     for name in ("expand_rows", "accumulate_rows", "sorted_segsum", "sorted_expand"):
         check(launches[name] == 2 * steps, f"DIN: {name} launched {launches[name]} times "
                                            f"in {steps} steps, expected 2 per step")
-    ev, _ = din_cli(["--task_type=eval", f"--model_dir={work}/din_model/", *argv], 0, "DIN eval")
+    # the fused attention unit: once each way a step, the forward also once
+    # a batch of the run's closing eval
+    check(launches["att_unit_backward"] == steps and launches["att_unit_forward"] > steps,
+          f"DIN: the attention unit launched {launches['att_unit_forward']} forward, "
+          f"{launches['att_unit_backward']} backward in {steps} steps, expected 1 and 1 a step "
+          "(and the eval's forwards)")
+    ev, elaunches = din_cli(["--task_type=eval", f"--model_dir={work}/din_model/", *argv], 0,
+                            "DIN eval")
+    check(elaunches["att_unit_forward"] >= 1 and elaunches["att_unit_backward"] == 0,
+          f"DIN eval: the attention unit launched {elaunches['att_unit_forward']} forward, "
+          f"{elaunches['att_unit_backward']} backward")
     check(abs(ev["loss"] - res["loss"]) <= 1e-4 * abs(res["loss"]),
           f"DIN eval {ev['loss']} differs from the train run's final eval {res['loss']}")
     sres, slaunches = din_cli(["--task_type=train", f"--model_dir={work}/din_sorted/",
@@ -1728,6 +1871,9 @@ def din_main_path(dev, work, rates):
           "DIN --coo_sorted_bwd: accumulate_rows should take only the shared lookup's backward")
     check(slaunches["expand_rows"] == 3 * ssteps,
           "DIN --coo_sorted_bwd: expand_rows should also gather the cotangent into sorted order")
+    check(slaunches["att_unit_backward"] == ssteps,
+          f"DIN --coo_sorted_bwd: att_unit_backward launched {slaunches['att_unit_backward']} "
+          f"times in {ssteps} steps")
     one, _ = din_cli(["--task_type=train", f"--model_dir={work}/din_sorted_mw1/",
                       "--coo_sorted_bwd=true", "--map_workers=1", *argv], 3,
                      "DIN --coo_sorted_bwd --map_workers=1")
@@ -1745,6 +1891,9 @@ def din_main_path(dev, work, rates):
     # lookup; the DIN run, once a step for each lookup
     launches["accumulate_rows (DIN shared lookup)"] = slaunches["accumulate_rows"]
     launches["accumulate_rows (DIN COO lookup)"] = launches["accumulate_rows"] - steps
+    # the attention unit's row counts its training steps (one launch each
+    # way, and one reduce, a step)
+    launches["att_unit"] = launches["att_unit_backward"]
     return launches
 
 
@@ -4786,10 +4935,13 @@ def main() -> int:
         return multihost_only(dev, work, card)
     if "--only=serving_load" in args:
         return serving_load_only(dev, work, card)
+    if "--only=att_unit" in args:
+        return att_unit_only(dev)
     try:
         kp = timed("3", kernel_phase, dev)
         ekp = timed("3", esmm_kernel_phase, dev)
         dkp = timed("3", din_kernel_phase, dev)
+        akp = timed("3", att_unit_kernel_phase, dev)
         skp = timed("3", scatter_kernel_phase, dev)
         fkp = timed("3", field_block_kernel_phase, dev)
         zkp = timed("3", zoo_kernel_phase, dev)
@@ -4840,6 +4992,7 @@ def main() -> int:
         ("sorted_expand", "sorted_seg.cu", "tf_repos_tpu/ops/pallas_sparse.py:1057", dkp, dlaunches),
         ("sorted_segsum (n_out=Su)", "sorted_seg.cu", "tf_repos_tpu/ops/pallas_sparse.py:1171", dkp,
          dlaunches),
+        ("att_unit", "att_unit.cu", "none: XLA ran DIN's attention MLP", akp, dlaunches),
         ("dma_row_scatter", "row_scatter.cu", "tf_repos_tpu/ops/pallas_sparse.py:1472", skp, elaunches),
         ("field_block_scatter", "field_block.cu", "tf_repos_tpu/ops/pallas_embedding.py:103", fkp,
          flaunches),

@@ -49,6 +49,7 @@ from tf_repos_tpu_torch.models.base import (
     SparseSlot,
     State,
 )
+from tf_repos_tpu_torch.ops import att_unit
 from tf_repos_tpu_torch.ops import towers as T
 from tf_repos_tpu_torch.ops.embedding import coo_pool, dense_lookup, glorot_normal_init
 from tf_repos_tpu_torch.utils.observability import span
@@ -88,15 +89,16 @@ class DIN(CtrModel):
         params["out"] = T.init_dense(generator, layers[-1], 1)
         return params, state
 
-    def _att_mlp(self, params, state, x, *, train, generator):
-        """Attention weight per row of x = [u, u - a, a]: [N]."""
+    def _att_mlp(self, params, state, u, a, *, train, generator):
+        """Attention weight per row from the MLP over [u, u - a, a]: [N].
+        ops/att_unit.py takes the fused kernels where the configuration
+        and tensors allow, else the ATen composition."""
         cfg = self.cfg
-        h, new_state = T.apply_mlp(
-            params["att_mlp"], state, x, keep_probs=cfg.dropout_list, train=train,
-            generator=generator, batch_norm=cfg.batch_norm, bn_decay=cfg.batch_norm_decay,
-            compute_dtype=cfg.tower_dtype,
+        return att_unit.apply(
+            params["att_mlp"], state, params["att_out"], u, a, keep_probs=cfg.dropout_list,
+            train=train, generator=generator, batch_norm=cfg.batch_norm,
+            bn_decay=cfg.batch_norm_decay, compute_dtype=cfg.tower_dtype,
         )
-        return torch.sigmoid(T.dense(params["att_out"], h))[:, 0], new_state
 
     def apply(
         self,
@@ -169,8 +171,7 @@ class DIN(CtrModel):
                     ub = demb.reshape(b * p, k)
                     ax = ad_emb[f][:, None, :].expand(b, p, k).reshape(b * p, k)
                     wgt, att_state = self._att_mlp(
-                        params, att_state, torch.cat([ub, ub - ax, ax], dim=1),
-                        train=train, generator=generator,
+                        params, att_state, ub, ax, train=train, generator=generator,
                     )
                     pooled.append(torch.sum(demb * wgt.reshape(b, p, 1) * mask[..., None], dim=1))
                 else:  # plain weighted sum-pool
@@ -237,8 +238,7 @@ class DIN(CtrModel):
             else:
                 a_sel = ad_all.reshape(gc, -1)[destf]
             wgt, att_state = self._att_mlp(
-                params, state["att_mlp"], torch.cat([d_rows, d_rows - a_sel, a_sel], dim=1),
-                train=train, generator=generator,
+                params, state["att_mlp"], d_rows, a_sel, train=train, generator=generator,
             )
             weighted = d_rows * wgt.to(d_rows.dtype)[:, None]
             # f32 accumulation in both forms

@@ -13,6 +13,10 @@
                                                    # surrogate itself; no result line)
     python3 chip_smoke.py --only=att_unit          # the fused attention unit alone
                                                    # (phase 3; no result line)
+    python3 chip_smoke.py --only=step_graph        # the bare DeepFM and DIN steps as
+                                                   # CUDA graphs against eager, and
+                                                   # the DeepFM and DIN trajectories
+                                                   # (phases 4 and 5; no result line)
 
 Four main paths, each driven through the CLI with every launch counter
 set to 0 just before and read just after, then serving from their
@@ -369,6 +373,7 @@ from tf_repos_tpu_torch.train import loop as L  # noqa: E402
 from tf_repos_tpu_torch.train import sparse as SP  # noqa: E402
 from tf_repos_tpu_torch.train.harness import Harness, to_device  # noqa: E402
 from tf_repos_tpu_torch.train.optimizers import make_optimizer  # noqa: E402
+from tf_repos_tpu_torch.train.step_graph import GraphedStep  # noqa: E402
 from tf_repos_tpu_torch.utils.platform import card_label  # noqa: E402
 from tf_repos_tpu_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -1303,6 +1308,18 @@ def att_unit_kernel_phase(dev):
     return {"t": t, "bound": bound, "bound_by": by, "err": err}
 
 
+def step_graph_only(dev) -> int:
+    """--only=step_graph: the bare DeepFM and DIN steps as CUDA graphs and
+    eagerly, then the DeepFM and DIN card-vs-CPU trajectories (the first
+    on graphs, the second eager for its replayed gates); no result line."""
+    bare_steps(dev, None)
+    din_bare_step(dev, None, False)
+    trajectory(dev)
+    din_trajectory(dev)
+    log("the step graph alone (--only=step_graph): no result line")
+    return 0
+
+
 def att_unit_only(dev) -> int:
     """--only=att_unit: the fused attention unit's phase alone; no result
     line."""
@@ -1776,7 +1793,7 @@ def esmm_bare_step(dev, profile):
                                         dma_scatter=cfg.dma_scatter)
     opt = SP.init_opt_state(model, tx, sopt, params)
     step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
-    for i in range(3):
+    for i in range(5):  # the first call eager, then each batch's graph captured
         params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4])
     torch.cuda.synchronize()
     n = 20
@@ -2098,7 +2115,7 @@ def lazy_bare_steps(dev, profile):
         step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
         mapper = SparseBatchMapper(model.sparse_slots())
         batches = [to_device(mapper(dict(b)), dev) for b in raw]
-        for i in range(3):
+        for i in range(5):  # the first call eager, then each batch's graph captured
             params, opt_state, mstate, loss = step(params, opt_state, mstate, batches[i % 4])
         torch.cuda.synchronize()
         n = 30
@@ -2700,6 +2717,29 @@ def serving_phase(dev, work):
     return phase, {names[m]: r[2] for m, r in res.items()}
 
 
+def graph_ab(label, step, run, n, ms, examples):
+    """The bare step ``run(i, generator)`` eagerly against its CUDA graphs
+    (``ms`` a step, timed just before): the same n steps with a dropout
+    generator passed, which a keep of 1 never draws from, so the math is
+    the graph's and the step stays eager. Logs both and the step object's
+    replay, capture and eager counts; returns the eager ms a step."""
+    if not isinstance(step, GraphedStep):
+        return None
+    force = torch.Generator(device=torch.device("cuda"))
+    for i in range(2):
+        run(i, force)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        run(i, force)
+    torch.cuda.synchronize()
+    eager = (time.perf_counter() - t0) / n * 1e3
+    log(f"bare step {label}: CUDA graph {ms:.3f} ms/step ({examples / ms * 1e3:.0f} examples/s) "
+        f"against eager {eager:.3f} ({examples / eager * 1e3:.0f}); step graph: replay "
+        f"{step.counts['replay']}, capture {step.counts['capture']}, eager {step.counts['eager']}")
+    return eager
+
+
 def din_bare_step(dev, profile, sorted_bwd, dma_scatter=False):
     """The bare DIN --mh_coo sparse step on pre-mapped batches already on
     the card. profile: None, or the trace path ("" for none)."""
@@ -2720,7 +2760,7 @@ def din_bare_step(dev, profile, sorted_bwd, dma_scatter=False):
                                         dma_scatter=cfg.dma_scatter)
     opt = SP.init_opt_state(model, tx, sopt, params)
     step = SP.build_sparse_train_step(model, tx, sopt, lookup=SR.make_expand_lookup())
-    for i in range(3):
+    for i in range(5):  # the first call eager, then each batch's graph captured
         params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4])
     torch.cuda.synchronize()
     n = 20
@@ -2735,6 +2775,7 @@ def din_bare_step(dev, profile, sorted_bwd, dma_scatter=False):
     log(f"bare step {label}: {ms:.3f} ms/step, {EB / ms * 1e3:.0f} examples/s (peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB); host chain (bucketer + packer"
         f"{' with the idx-sorted stream' if sorted_bwd else ''} + mapper) {host_ms:.1f} ms/batch")
+    graph_ab(label, step, lambda i, g: step(params, opt, mstate, batches[i % 4], g), n, ms, EB)
     if profile is not None:
         suffix = "_din" + ("_sorted" if sorted_bwd else "") + ("_dma" if dma_scatter else "")
         trace = os.path.splitext(profile)[0] + suffix + ".json" if profile else ""
@@ -2776,7 +2817,7 @@ def bare_steps(dev, profile):
             opt = tx.init(params)
             step = L.build_train_step(model, tx)
             batches = [to_device(b, dev) for b in (blocks if "block" in label else raw)]
-        for i in range(3):
+        for i in range(5):  # the first call eager, then each batch's graph captured
             params, opt, mstate, loss = step(params, opt, mstate, batches[i % 4])
         torch.cuda.synchronize()
         n = 30
@@ -2789,6 +2830,10 @@ def bare_steps(dev, profile):
         out[label] = ms
         log(f"bare step {label}: {ms:.3f} ms/step, {B / ms * 1e3:.0f} examples/s "
             f"(peak mem {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB)")
+        if label == "sparse":
+            out["sparse, eager"] = graph_ab(
+                "DeepFM sparse", step, lambda i, g: step(params, opt, mstate, batches[i % 4], g),
+                n, ms, B)
         if profile is not None and label == "sparse":
             profile_step("DeepFM sparse", lambda i: step(params, opt, mstate, batches[i % 4]), profile)
         if profile is not None and label == "dense+field_blocks":
@@ -3064,6 +3109,9 @@ def step_legs(runs, batches, gates=None):
     key (the first run records each batch's gates)."""
     for r in runs.values():
         r["losses"] = []
+        if gates and isinstance(r["step"], GraphedStep):
+            # a replay runs no Python: the gates are recorded and replayed eagerly
+            r["step"].eager_only = "ReLU gates recorded on the host"
     if gates:
         torch.relu = gates
     try:
@@ -4937,6 +4985,8 @@ def main() -> int:
         return serving_load_only(dev, work, card)
     if "--only=att_unit" in args:
         return att_unit_only(dev)
+    if "--only=step_graph" in args:
+        return step_graph_only(dev)
     try:
         kp = timed("3", kernel_phase, dev)
         ekp = timed("3", esmm_kernel_phase, dev)

@@ -684,10 +684,14 @@ class Harness:
                   "(the trace window brackets individual dispatches)")
         # dropout's stream is the data rank's own (fold_seed); the
         # stochastic rounding's is the same on every rank, so dropout's
-        # draws do not shift it
+        # draws do not shift it. Each is None where nothing draws from it
+        # (every keep 1; an f32 store): a step that draws nothing may
+        # replay as a CUDA graph (train/step_graph.py)
         d = self.mesh.d if self.mesh is not None else 0
-        gen = torch.Generator(device=self.device).manual_seed(fold_seed(cfg.seed + 1, d))
-        sr_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 2)
+        gen = (torch.Generator(device=self.device).manual_seed(fold_seed(cfg.seed + 1, d))
+               if any(k < 1.0 for k in cfg.dropout_list) else None)
+        sr_gen = (torch.Generator(device=self.device).manual_seed(cfg.seed + 2)
+                  if cfg.param_dtype in ("bfloat16", "bf16") else None)
         writer = MetricsWriter(self.model_dir) if cfg.write_metrics and self.chief else None
         # on a mesh every rank stops at the same decision boundary
         stop = GracefulStop(cfg.graceful_shutdown, cfg.eval_decision_steps, K,

@@ -22,23 +22,69 @@ Each optimizer has ``init(tree) -> state`` and an in-place
 the tree ``state`` was initialised from. The updates run on the foreach
 kernels (a handful of launches for the whole tree instead of a few per
 tensor). FTRL, as optax applies it, adds ``w_new - p`` to p rather than
-storing w_new, so its rounding is the JAX package's."""
+storing w_new, so its rounding is the JAX package's. Adam computes its
+bias corrections on the device (BiasCorrections), so a step replayed from
+a CUDA graph uses its own step count."""
 
 from __future__ import annotations
 
 import math
 import warnings
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 
 from tf_repos_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
+def _capturing(device: torch.device) -> bool:
+    """True while the current stream of a card records a CUDA graph."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+class BiasCorrections:
+    """Adam's bias corrections [1 - b1^t, 1 - b2^t] computed on the
+    device from a device copy of the step count t (one a state dict), so
+    that a step replayed from a CUDA graph (train/step_graph.py) uses its
+    own t: an eager step fills the copy with t, a step being captured
+    adds one to it, and both run the same operations. ``dtype`` is the
+    precision of the powers: float32 is powf, as the JAX package's lazy
+    rows take it; float64 is the Python scalar optax's dense update
+    divided by. The result is rounded to f32; on the CPU it is, bit for
+    bit, the scalar each update divided by before. On a card the f32
+    powers are CUDA's powf, an ulp from the CPU's at some t (72 of
+    t <= 4,096 at b = 0.999, none at 0.9); the f64 ones agree."""
+
+    def __init__(self, b1: float, b2: float, dtype: torch.dtype):
+        self._b, self._dtype = (b1, b2), dtype
+        self._betas: Dict[torch.device, torch.Tensor] = {}
+        self._counts: Dict[int, torch.Tensor] = {}
+
+    def advance(self, state: Dict[str, Any], key: str, device) -> Tuple[int, torch.Tensor]:
+        """Advance the count state[key] by one step: (the new count t, the
+        [2] f32 corrections on ``device``)."""
+        t = state[key] = state[key] + 1
+        count, betas = self._counts.get(id(state)), self._betas.get(device)
+        if _capturing(device):
+            if count is None or betas is None or count.device != device:
+                raise RuntimeError("the step count has no copy on the device: step eagerly first")
+            count.add_(1)
+        else:
+            if betas is None:
+                betas = self._betas[device] = torch.tensor(self._b, dtype=self._dtype,
+                                                           device=device)
+            if count is None or count.device != device:
+                count = self._counts[id(state)] = torch.empty((), dtype=torch.int64,
+                                                              device=device)
+            count.fill_(t)
+        return t, (1.0 - torch.pow(betas, count)).float()
+
+
 class Adam:
     def __init__(self, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8):
         self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
+        self.steps = BiasCorrections(b1, b2, torch.float64)
 
     def init(self, params: Any) -> Dict[str, Any]:
         return {
@@ -56,16 +102,15 @@ class Adam:
             return
         b1, b2 = self.b1, self.b2
         mu, nu = tree_leaves(state["mu"]), tree_leaves(state["nu"])
-        state["count"] += 1
-        t = state["count"]
+        _, c = self.steps.advance(state, "count", mu[0].device)
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
-        denom = torch._foreach_div(nu, 1.0 - b2 ** t)
+        denom = torch._foreach_div(nu, c[1])
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        step = torch._foreach_div(mu, 1.0 - b1 ** t)
+        step = torch._foreach_div(mu, c[0])
         torch._foreach_div_(step, denom)
         torch._foreach_add_(params, step, alpha=-self.lr)
 

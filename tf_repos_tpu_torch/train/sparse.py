@@ -37,6 +37,8 @@ from tf_repos_tpu_torch.data.sparse_batch import UIDS_PREFIX
 from tf_repos_tpu_torch.ops.embedding import dense_lookup
 from tf_repos_tpu_torch.ops.rounding import maybe_round
 from tf_repos_tpu_torch.ops.row_scatter import dma_row_scatter
+from tf_repos_tpu_torch.train.optimizers import BiasCorrections
+from tf_repos_tpu_torch.train.step_graph import GraphedStep
 from tf_repos_tpu_torch.utils.observability import span
 from tf_repos_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
@@ -205,6 +207,10 @@ class _LazyAdam(SparseRowOpt):
         self.catchup = catchup
         self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
         self._powers: Dict[Any, torch.Tensor] = {}
+        # 1 - b^t in f32, as the JAX package computes it (the double power
+        # cast to f32 differs from it by up to ~100 f32 ulps at b = 0.999,
+        # which would move bf16 roundings)
+        self.steps = BiasCorrections(self.b1, self.b2, torch.float32)
 
     def _power_table(self, t: int, device) -> torch.Tensor:
         """[2, n > t] f32: b1^k and b2^k for k < n, computed on the CPU
@@ -226,27 +232,18 @@ class _LazyAdam(SparseRowOpt):
         d = self._power_table(t, delta.device).index_select(1, delta)
         return d[0][:, None], d[1][:, None]
 
-    @staticmethod
-    def _correction(b: float, t: int) -> float:
-        """1 - b^t in f32, as the JAX package computes it (the double
-        power cast to f32 differs from it by up to ~100 f32 ulps at
-        b = 0.999, which would move bf16 roundings)."""
-        # a tensor exponent: torch computes small integer scalar powers by
-        # repeated products, which round differently from powf
-        f32 = torch.float32
-        return (1.0 - torch.pow(torch.tensor(b, dtype=f32), torch.tensor(float(t), dtype=f32))).item()
-
-    def _adam(self, w0, m0, v0, g, d1, d2, t: int):
+    def _adam(self, w0, m0, v0, g, d1, d2, c):
+        """The row update; ``c``: the step's bias corrections, a device
+        tensor (self.steps), so the division is a true one (_div)."""
         b1, b2 = self.b1, self.b2
         m1 = d1 * m0 + (1.0 - b1) * g
         v1 = d2 * v0 + (1.0 - b2) * torch.square(g)
-        m_hat = _div(m1, self._correction(b1, t))
-        v_hat = _div(v1, self._correction(b2, t))
+        m_hat = m1 / c[0]
+        v_hat = v1 / c[1]
         w1 = w0 - self.lr * m_hat / (torch.sqrt(v_hat) + self.eps)
         return w1, m1, v1
 
     def _touch(self, aux, u, t: int) -> None:
-        aux["t"] = t
         if self.catchup:
             put_rows(aux["last"], u, torch.full_like(u, t, dtype=aux["last"].dtype))
 
@@ -266,9 +263,9 @@ class _LazyAdam(SparseRowOpt):
 
     @torch.no_grad()
     def apply(self, aux, su, u, g, generator=None) -> torch.Tensor:
-        t = aux["t"] + 1
+        t, c = self.steps.advance(aux, "t", g.device)
         d1, d2 = self._decays(aux, u, t)
-        w1, m1, v1 = self._adam(*self.moments(aux, su, u), g, d1, d2, t)
+        w1, m1, v1 = self._adam(*self.moments(aux, su, u), g, d1, d2, c)
         for name, new in self.new_rows(w1, m1, v1).items():
             write_rows(aux[name], u, new, generator)
         self._touch(aux, u, t)
@@ -354,11 +351,11 @@ class FusedTableRowOpt(_LazyAdam):
 
     @torch.no_grad()
     def apply(self, aux, su, u, g, generator=None) -> torch.Tensor:
-        t = aux["t"] + 1
+        t, c = self.steps.advance(aux, "t", g.device)
         k = aux["k"]
         d1, d2 = self._decays(aux, u, t)
         w1, m1, v1 = self._adam(
-            su[:, :k], su[:, k : 2 * k], su[:, 2 * k : 3 * k], g, d1, d2, t
+            su[:, :k], su[:, k : 2 * k], su[:, 2 * k : 3 * k], g, d1, d2, c
         )
         store, rows = aux["wmv"], torch.cat([w1, m1, v1], dim=-1)
         if self.dma_scatter:
@@ -455,7 +452,10 @@ def build_sparse_train_step(model, tx_dense, sopt: SparseRowOpt, lookup=None):
     ops/sparse_rows.make_expand_lookup(). ``generator`` drives dropout,
     ``sr_generator`` the stochastic rounding of bf16 stores (tables in
     slot order, each store's draw in the JAX package's order); an f32
-    step draws nothing from it."""
+    step draws nothing from it. The step is a train/step_graph.GraphedStep:
+    replayed from a CUDA graph a batch signature where nothing draws and
+    every batch tensor is on a card, else run as it is (always under
+    per-row catch-up)."""
     slot_names = list(model.sparse_slots().keys())
     lookup = lookup or dense_lookup
 
@@ -490,7 +490,7 @@ def build_sparse_train_step(model, tx_dense, sopt: SparseRowOpt, lookup=None):
                     params[t] = sopt.apply(opt_state["sparse"][t], su[t], u[t], g_rows[i], sr_generator)
         return params, opt_state, new_mstate, loss.detach()
 
-    return step
+    return GraphedStep(step, "catch-up" if getattr(sopt, "catchup", False) else None)
 
 
 def cast_tables(model, params: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:

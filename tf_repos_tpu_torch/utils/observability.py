@@ -22,6 +22,10 @@ scalar metric events, profiler traces, NaN checks.
   RECORDER          the bounded in-memory store of span records; read by
                     profile_trace's summary line (span_summary) and by
                     the benchmark
+  STEP_LOG          how each training step ran while a profiler was
+                    active: replayed from a CUDA graph of the step, or
+                    eagerly and why (train/step_graph.py); read by the
+                    benchmark
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ import socket
 import threading
 import time
 from collections import defaultdict, deque
-from typing import Any, Callable, Dict, List, Optional
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
@@ -103,12 +108,12 @@ class profile_trace:
 
 
 # ------------------------------------------------------------------ spans
-MAX_SPAN_RECORDS = 65_536
+MAX_SPAN_RECORDS = 1 << 18
 
 
 class _Record:
     __slots__ = ("name", "parent", "step", "count", "start_ns", "end_ns", "start_ev", "end_ev",
-                 "own_end", "device_ms")
+                 "own_end", "device_ms", "pooled")
 
     def __init__(self, name: str, parent: Optional[int], step: Optional[int], count: Any):
         self.name, self.parent, self.step, self.count = name, parent, step, count
@@ -116,6 +121,13 @@ class _Record:
         self.start_ev = self.end_ev = None  # CUDA events until resolved
         self.own_end = True  # False once the next span took end_ev over as its start
         self.device_ms = None
+        self.pooled = True  # False: the events are a step graph's, never the pool's
+
+    def give_back(self, pool: List[Any]) -> None:
+        if self.pooled:
+            pool.append(self.start_ev)
+            if self.own_end:
+                pool.append(self.end_ev)
 
 
 class SpanRecorder:
@@ -197,9 +209,7 @@ class SpanRecorder:
                 r.device_ms = r.start_ev.elapsed_time(r.end_ev)
             except RuntimeError:  # not reached yet
                 break
-            self._pool.append(r.start_ev)
-            if r.own_end:
-                self._pool.append(r.end_ev)
+            r.give_back(self._pool)
             r.start_ev = r.end_ev = None
 
     def reclaim(self) -> None:
@@ -242,9 +252,7 @@ class SpanRecorder:
         with self._lock:
             for r in self._recs:
                 if r.end_ev is not None:
-                    self._pool.append(r.start_ev)
-                    if r.own_end:
-                        self._pool.append(r.end_ev)
+                    r.give_back(self._pool)
             self._recs = []
             self._steps.clear()
             self._cursor = 0
@@ -262,9 +270,76 @@ class SpanRecorder:
                 h = self._halves[(step, name)] = _BackwardHalf(self, name, step, count, stack)
             return h
 
+    def replayed(self, template: "SpanRecorder", start_ns: int, end_ns: int) -> Optional[_Record]:
+        """A replay of a step graph whose capture recorded ``template``
+        (span_template): a copy of its step tree under a new step id,
+        with the graph's events, which the replay has just recorded again,
+        and the replay's host times; the step record, or None past the
+        limit. The tree's top takes the parent the thread's open spans
+        give it now. The graph must not replay again before ``settle``
+        has read these events."""
+        recs = template._recs
+        outer = _parent(_stack())
+        with self._lock:
+            if not recs or len(self._recs) + len(recs) > self.limit:
+                self.dropped += len(recs)
+                return None
+            self._step += 1
+            base = len(self._recs)
+            for i, r in enumerate(recs):
+                parent = outer if i == 0 else (None if r.parent is None else r.parent + base)
+                c = _Record(r.name, parent, self._step, r.count)
+                c.start_ns, c.end_ns = start_ns, end_ns
+                c.start_ev, c.end_ev, c.own_end, c.pooled = r.start_ev, r.end_ev, r.own_end, False
+                self._recs.append(c)
+            if recs[0].end_ev is not None:
+                self._steps.append(base)
+            return self._recs[base]
+
+    def settle(self, step_rec: Optional[_Record]) -> None:
+        """Wait until the device has passed the end of ``step_rec`` (a
+        replayed step's record) and resolve the records up to it: its
+        graph is about to record the same events again."""
+        if step_rec is not None and step_rec.end_ev is not None:
+            step_rec.end_ev.synchronize()
+            self.reclaim()
+
+
+class _GraphTemplate(SpanRecorder):
+    """The span records of one step while a CUDA graph of it is captured:
+    each event is the graph's own (external: every replay records it),
+    and nothing is resolved here, since no event may be queried while a
+    stream captures."""
+
+    def _event(self):
+        return torch.cuda.Event(enable_timing=True, external=True)
+
+    def reclaim(self) -> None:
+        pass
+
 
 RECORDER = SpanRecorder()
 _local = threading.local()
+_capture: List[Optional[SpanRecorder]] = [None]  # the template of the capture in progress
+
+
+def _target() -> SpanRecorder:
+    """Where spans record: the capture's template while a traced step
+    graph is captured, else RECORDER."""
+    return _capture[0] or RECORDER
+
+
+@contextmanager
+def span_template() -> Iterator[SpanRecorder]:
+    """While a step graph is captured under a profiler: the spans opened
+    inside record into the template yielded (train/step_graph.py hands
+    it to RECORDER.replayed after each replay)."""
+    template = _capture[0] = _GraphTemplate()
+    try:
+        yield template
+    finally:
+        _capture[0] = None
+        _local.closed = None
 
 
 def _stack() -> List:
@@ -347,24 +422,24 @@ class _Span:
         stack = self.stack = _stack()
         self.saved_step = _local.step
         if self.name == "step":
-            _local.step = RECORDER.new_step()
+            _local.step = _target().new_step()
         self.step = _local.step
         if self.count is not None:
             self.count = self.count()
         self.rf = torch.profiler.record_function(self.name)
         self.rf.__enter__()
         after, _local.closed = (_local.closed if self.adjacent else None), None
-        index, self.rec = RECORDER.open(self.name, _parent(stack), self.step, self.count, after)
+        index, self.rec = _target().open(self.name, _parent(stack), self.step, self.count, after)
         stack.append((index, self.rec))
         return self
 
     def __exit__(self, *exc):
         self.stack.pop()
-        RECORDER.close(self.rec)
+        _target().close(self.rec)
         _local.closed = self.rec
         self.rf.__exit__(*exc)
         if self.name == "step":
-            RECORDER.reclaim()
+            _target().reclaim()
         _local.step = self.saved_step
         return False
 
@@ -375,7 +450,7 @@ class _Span:
         outs = [t for t in tree_leaves(outputs) if isinstance(t, torch.Tensor) and t.requires_grad]
         ins = [t for t in tree_leaves(inputs) if isinstance(t, torch.Tensor) and t.requires_grad]
         if outs and ins:
-            RECORDER.half(self.name + ".bwd", self.step, self.count, self.stack).watch(outs, ins)
+            _target().half(self.name + ".bwd", self.step, self.count, self.stack).watch(outs, ins)
 
 
 class _Off:
@@ -408,6 +483,29 @@ def span(name: str, count: Optional[Callable[[], Any]] = None, adjacent: bool = 
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Span(name, count, adjacent)
+
+
+class StepLog:
+    """How each training step ran while a profiler was active, in order:
+    "graph" (replayed from a CUDA graph of the step, captured just before
+    or earlier) or "eager: <reason>" (train/step_graph.py); at most
+    ``limit`` entries, as RECORDER. ``take`` returns them and empties
+    the log."""
+
+    def __init__(self, limit: int = MAX_SPAN_RECORDS):
+        self.limit = limit
+        self._entries: List[str] = []
+
+    def note(self, how: str) -> None:
+        if _autograd_profiler._is_profiler_enabled and len(self._entries) < self.limit:
+            self._entries.append(how)
+
+    def take(self) -> List[str]:
+        out, self._entries = self._entries, []
+        return out
+
+
+STEP_LOG = StepLog()
 
 
 def step_trees(records: List[Dict[str, Any]],
